@@ -1,0 +1,31 @@
+"""Parameters of the JAX reference, as numpy, into the port's parameters.
+
+    params = params_from_jax(jax.tree.map(np.asarray, jax_params), cfg,
+                             device="cpu", dtype=torch.float32)
+
+The trees have the same structure, so both packages then compute the same
+function.  Takes numpy (never JAX arrays), so this module needs no JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve
+from . import params as pr
+from .lm import LM
+
+
+def params_from_jax(tree, cfg: ModelConfig, device: str | torch.device = "cuda",
+                    dtype: torch.dtype = torch.float32):
+    dev = resolve(device)
+
+    def convert(a, p: pr.P):
+        a = np.asarray(a, dtype=np.float32)
+        if a.shape != p.shape:
+            raise ValueError(f"parameter shape {a.shape} != spec {p.shape}")
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev,
+                                                            dtype=dtype)
+
+    return pr.tree_map(convert, tree, LM(cfg).param_specs())

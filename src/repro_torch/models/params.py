@@ -1,0 +1,93 @@
+"""Parameter-tree machinery: declare shapes + logical axes once, then derive
+initialized trees and sizes from the same declaration.
+
+Trees are nested dicts whose leaves are ``P`` specs (or, once initialized,
+tensors).  ``init`` draws from an explicit ``torch.Generator``; its numbers
+differ from ``jax.random``'s for the same seed, so tests hand both packages
+one numpy tree instead (``models.convert``).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class P:
+    """One parameter leaf: shape + logical axes + init recipe."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"       # normal | zeros | ones | embed
+    scale: float = 1.0         # fan-in style scale override (0 -> auto)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def is_leaf(x) -> bool:
+    return not isinstance(x, dict)
+
+
+def tree_map(f: Callable, tree, *rest):
+    """Map ``f`` over the leaves of ``tree`` (and the same leaves of ``rest``)."""
+    if is_leaf(tree):
+        return f(tree, *rest)
+    for r in rest:
+        if not isinstance(r, dict) or r.keys() != tree.keys():
+            raise ValueError(f"tree structures differ: {sorted(tree)} vs "
+                             f"{sorted(r) if isinstance(r, dict) else r!r}")
+    return {k: tree_map(f, tree[k], *(r[k] for r in rest)) for k in tree}
+
+
+def leaves(tree) -> list:
+    if is_leaf(tree):
+        return [tree]
+    return [x for k in tree for x in leaves(tree[k])]
+
+
+def _truncated_normal(shape, gen: torch.Generator, lo: float = -2.0,
+                      hi: float = 2.0) -> torch.Tensor:
+    """Standard normal truncated to [lo, hi], by inverting the CDF."""
+    cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))  # noqa: E731
+    a, b = cdf(lo), cdf(hi)
+    x = torch.rand(shape, generator=gen, device=gen.device)   # in place below:
+    x.mul_(b - a).add_(a).mul_(2.0).sub_(1.0).erfinv_()     # leaves are GBs
+    return x.mul_(math.sqrt(2.0)).clamp_(lo, hi)
+
+
+def _init_leaf(gen: torch.Generator, p: P, dtype: torch.dtype) -> torch.Tensor:
+    dev = gen.device
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=dev)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=dev)
+    if p.init == "embed":
+        return (torch.randn(p.shape, generator=gen, device=dev) * 0.02).to(dtype)
+    if p.init != "normal":    # conv / a_log / dt_bias come with the SSM slice
+        raise NotImplementedError(f"init {p.init!r} is not ported yet")
+    # Truncated normal, fan-in scaled.  Fan-in comes from one layer's shape:
+    # the reference takes it from the stacked leaf, whose leading axis is the
+    # layer count (std 1/sqrt(28) for every chatglm3-6b matrix, which drives
+    # the random full-width model into saturation).
+    shape = p.shape[1:] if p.axes[:1] == ("layers",) else p.shape
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    std = p.scale / math.sqrt(max(fan_in, 1))
+    return _truncated_normal(p.shape, gen).mul_(std).to(dtype)
+
+
+def init(tree, gen: torch.Generator, dtype: torch.dtype = torch.float32):
+    """Initialized tensors on ``gen.device``, drawn in tree order from ``gen``."""
+    return tree_map(lambda p: _init_leaf(gen, p, dtype), tree)
+
+
+def count(tree) -> int:
+    return sum(math.prod(p.shape) for p in leaves(tree))
+
+
+def bytes_of(tree, dtype: torch.dtype = torch.bfloat16) -> int:
+    return sum(math.prod(p.shape) for p in leaves(tree)) * dtype.itemsize

@@ -10,6 +10,7 @@ def pytest_configure(config):
         "markers",
         "slow: compiles through jax/XLA; deselect with -m 'not slow' for a "
         "fast pure-python simulator signal (tier-1 runs everything)")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card; skips without one")
 
 
 @pytest.fixture

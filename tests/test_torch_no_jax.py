@@ -1,0 +1,74 @@
+"""The port stands alone: it imports no JAX and nothing of ``repro``, and
+its entry points refuse to run on the CPU unless asked to."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL],
+                          capture_output=True, text=True, timeout=120,
+                          env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 25            # configs, models, kernels, serve, launch
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny():
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models.lm import build_model
+    model = build_model(reduced_config(ARCHS["chatglm3-6b"]))
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def test_serve_engine_raises_without_card(no_card):
+    from repro_torch.serve.engine import ServeEngine
+    model, params = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params)
+    ServeEngine(model, params, device="cpu")          # explicit CPU runs
+
+
+def test_entry_points_raise_without_card(no_card):
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import params_from_jax
+    model, params = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--requests", "1", "--max-new", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+    tree = {k: v for k, v in params.items()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree, model.cfg)
+
+
+def test_ops_never_fall_back_to_the_cpu():
+    """A tensor that is not on the CPU never reaches the plain version."""
+    from repro_torch.kernels import ops
+    q = torch.zeros((1, 8, 4, 32), device="meta")
+    k = torch.zeros((1, 8, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.flash_attention(q, k, k, causal=True)
