@@ -7,6 +7,9 @@ repository root; the file name carries a hash of the source and the compiler
 flags, so an edited source is never served by a stale library.
 
     lib = load("flash_attention").lib     # builds on the first call
+
+``load`` is safe to call from several threads at once, one per library, so
+that the sources compile side by side.
 """
 from __future__ import annotations
 
@@ -33,6 +36,13 @@ SIGNATURES = {
             ctypes.c_int,
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              ctypes.POINTER(ctypes.c_longlong), _F, _I, _P]),
+        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "ssd_scan": {
+        "repro_ssd_chunk_fwd": (
+            ctypes.c_int,
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.POINTER(ctypes.c_longlong), _P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

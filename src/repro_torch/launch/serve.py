@@ -1,11 +1,14 @@
 """Serving launcher: random-weight model, random prompts, ServeEngine.generate.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --requests 2 --prompt-len 16 --max-new 8
 
-bf16 parameters, flash attention in prefill.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+bf16 parameters; prefill through the kernels: flash attention (K3) and the
+SSD intra-chunk kernel (K4).  Runs on ``cuda`` unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def main(argv=None) -> int:
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduced_config(cfg)
-    model = build_model(cfg, attn_impl="flash")
+    model = build_model(cfg, attn_impl="flash", ssd_impl="kernel")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, dtype=torch.bfloat16)
 

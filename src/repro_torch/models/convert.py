@@ -3,8 +3,9 @@
     params = params_from_jax(jax.tree.map(np.asarray, jax_params), cfg,
                              device="cpu", dtype=torch.float32)
 
-The trees have the same structure, so both packages then compute the same
-function.  Takes numpy (never JAX arrays), so this module needs no JAX.
+The trees have the same structure for every ported family (dense, ssm,
+hybrid), so both packages then compute the same function.  Takes numpy (never
+JAX arrays), so this module needs no JAX.
 """
 from __future__ import annotations
 

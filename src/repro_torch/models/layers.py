@@ -1,4 +1,5 @@
-"""Shared layers: norms, rotary embeddings, MLP variants, embeddings."""
+"""Shared layers: norms (plain and gated), rotary embeddings, MLP variants,
+embeddings."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,6 +31,14 @@ def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         ms = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
     return y.to(x.dtype)
+
+
+def rms_norm_gated(x: torch.Tensor, scale: torch.Tensor, gate: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2 output norm: RMSNorm(x * silu(gate)), computed in f32."""
+    xf = x.float() * F.silu(gate.float())
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
 # ------------------------------------------------------------------- rotary

@@ -1,4 +1,4 @@
-"""The language model, dense family.
+"""The language model: dense, ssm and hybrid families.
 
 Counterpart of ``repro.models.lm``.  ``LM`` builds the parameter-spec tree,
 initializes it and provides the entry points:
@@ -7,9 +7,12 @@ initializes it and provides the entry points:
 * ``decode_fn(params, cache, batch)``   — one new token against the cache
 
 Parameters keep the reference's tree (per-layer leaves stacked on a leading
-``layers`` axis) and the cache its ``{"k", "v"}`` leaves of shape
-(L, B, S, KVH, HD), so both compare leaf for leaf.  ``lax.scan`` over layers
-becomes a Python loop over layer views.
+``layers`` axis) and the caches its leaves: ``{"k", "v"}`` of shape
+(L, B, S, KVH, HD) for the dense family, the Mamba2 conv windows and SSD
+state for ``ssm``, and those plus ``shared_k``/``shared_v`` (one entry per
+invocation of the shared block) for ``hybrid`` (zamba2).  So both packages
+compare leaf for leaf.  ``lax.scan`` over layers becomes a Python loop over
+layer views.
 """
 from __future__ import annotations
 
@@ -31,12 +34,12 @@ from .layers import (
     norm_params,
 )
 from .params import P
+from .ssm import SSD_IMPLS, apply_mamba, mamba_params
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 # Families not ported yet, with the ROADMAP item that ports each.
 _UNPORTED = {
     "moe": "ROADMAP queue 1, the MoE slice (grok-1, llama4-scout)",
-    "ssm": "ROADMAP queue 1, the SSM slice (mamba2, kernels K4/K5)",
-    "hybrid": "ROADMAP queue 1, the SSM slice (zamba2)",
     "vlm": "ROADMAP queue 1, the VLM and audio slice (paligemma)",
     "audio": "ROADMAP queue 1, the VLM and audio slice (whisper)",
 }
@@ -49,17 +52,26 @@ def stack_specs(tree, n: int):
 
 
 class LM:
-    """A language model of the dense family: specs, init, forward, entry points."""
+    """A language model of a ported family: specs, init, forward, entry points.
+
+    ``ssd_impl`` picks the Mamba2 scan of the ssm and hybrid families:
+    ``"chunked"`` (plain PyTorch; the reference's ``"jnp"``) or ``"kernel"``
+    (``kernels.ops.ssd_scan`` over K4; the reference's ``"pallas"``).
+    """
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "blocked",
-                 kv_block: int = 1024):
-        if cfg.family != "dense":
+                 kv_block: int = 1024, ssd_impl: str = "chunked"):
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet; "
                 f"see {_UNPORTED.get(cfg.family, 'ROADMAP queue 1')}")
+        if ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"unknown SSD impl {ssd_impl!r}; use one of "
+                             f"{SSD_IMPLS}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.kv_block = kv_block
+        self.ssd_impl = ssd_impl
 
     # ------------------------------------------------------------- param specs
     def _dense_layer_specs(self) -> dict:
@@ -69,20 +81,59 @@ class LM:
 
     def param_specs(self) -> dict:
         cfg = self.cfg
-        return {"embed": embed_params(cfg),
-                "final_norm": norm_params(cfg),
-                "layers": stack_specs(self._dense_layer_specs(), cfg.n_layers)}
+        specs = {"embed": embed_params(cfg), "final_norm": norm_params(cfg)}
+        if cfg.family in ("ssm", "hybrid"):
+            layer = {"ln": norm_params(cfg), "mamba": mamba_params(cfg)}
+            specs["layers"] = stack_specs(layer, cfg.n_layers)
+            if cfg.family == "hybrid":
+                specs["shared_attn"] = self._dense_layer_specs()
+        else:
+            specs["layers"] = stack_specs(self._dense_layer_specs(),
+                                          cfg.n_layers)
+        return specs
 
     def init(self, gen: torch.Generator, dtype: torch.dtype = torch.float32):
         """Parameters drawn from ``gen``, on ``gen.device``."""
         return pr.init(self.param_specs(), gen, dtype)
 
     # --------------------------------------------------------------- caches
+    def n_shared_invocations(self) -> int:
+        cfg = self.cfg
+        if cfg.family != "hybrid":
+            return 0
+        return len(range(0, cfg.n_layers, cfg.shared_attn_every))
+
+    def _mamba_cache_specs(self, batch: int) -> dict:
+        cfg = self.cfg
+        s = cfg.ssm
+        L = cfg.n_layers
+        di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+        gn = s.n_groups * s.d_state
+        return {
+            "conv_x": P((L, batch, s.d_conv - 1, di),
+                        ("layers", "batch", "kwidth", "inner"), "zeros"),
+            "conv_B": P((L, batch, s.d_conv - 1, gn),
+                        ("layers", "batch", "kwidth", "state"), "zeros"),
+            "conv_C": P((L, batch, s.d_conv - 1, gn),
+                        ("layers", "batch", "kwidth", "state"), "zeros"),
+            "state": P((L, batch, nh, s.head_dim, s.d_state),
+                       ("layers", "batch", "ssm_heads", "head_dim", "state"),
+                       "zeros"),
+        }
+
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         """Cache tree as P-leaves (shape + logical axes)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         kv_axes = ("layers", "batch", "kvseq", "kv_heads", "head_dim")
+        if cfg.family == "ssm":
+            return self._mamba_cache_specs(batch)
+        if cfg.family == "hybrid":
+            shape = (self.n_shared_invocations(), batch, max_seq,
+                     cfg.n_kv_heads, cfg.head_dim)
+            return {"mamba": self._mamba_cache_specs(batch),
+                    "shared_k": P(shape, kv_axes, "zeros"),
+                    "shared_v": P(shape, kv_axes, "zeros")}
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": P(shape, kv_axes, "zeros"), "v": P(shape, kv_axes, "zeros")}
 
     def init_cache(self, batch: int, max_seq: int,
@@ -94,14 +145,16 @@ class LM:
             self.cache_specs(batch, max_seq))
 
     # --------------------------------------------------------------- forward
-    def _dense_stack(self, params, x, mode: str, cache, pos: Optional[int]):
-        cfg = self.cfg
+    @staticmethod
+    def _positions(x: torch.Tensor, pos: Optional[int]) -> torch.Tensor:
         B, S = x.shape[:2]
         if pos is None:
-            positions = torch.arange(S, device=x.device)[None, :]
-        else:
-            positions = torch.full((B, 1), pos, dtype=torch.long,
-                                   device=x.device)
+            return torch.arange(S, device=x.device)[None, :]
+        return torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+
+    def _dense_stack(self, params, x, mode: str, cache, pos: Optional[int]):
+        cfg = self.cfg
+        positions = self._positions(x, pos)
         ks, vs = [], []
         for i in range(cfg.n_layers):
             lp = pr.tree_map(lambda a: a[i], params["layers"])
@@ -122,13 +175,75 @@ class LM:
             return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
         return x, cache
 
+    def _mamba_layer(self, lp, x, mode: str, cache, i: int):
+        """Pre-norm Mamba2 residual layer i.  Returns (x, the layer's new
+        cache); decode updates the layer's views of ``cache`` in place."""
+        lc = None if cache is None else pr.tree_map(lambda a: a[i], cache)
+        m, new_lc = apply_mamba(lp["mamba"], apply_norm(lp["ln"], x),
+                                self.cfg, mode=mode, cache=lc,
+                                impl=self.ssd_impl)
+        return x + m, new_lc
+
+    @staticmethod
+    def _stack_layers(per_layer: list) -> dict:
+        return {k: torch.stack([c[k] for c in per_layer])
+                for k in per_layer[0]}
+
+    def _ssm_stack(self, params, x, mode: str, cache):
+        new = []
+        for i in range(self.cfg.n_layers):
+            lp = pr.tree_map(lambda a: a[i], params["layers"])
+            x, new_lc = self._mamba_layer(lp, x, mode, cache, i)
+            new.append(new_lc)
+        if mode == "prefill":
+            return x, self._stack_layers(new)
+        return x, cache
+
+    def _hybrid_stack(self, params, x, mode: str, cache, pos: Optional[int]):
+        """zamba2: the shared attention+MLP block runs before every
+        ``shared_attn_every``-th Mamba2 layer, starting at layer 0."""
+        cfg = self.cfg
+        sp = params["shared_attn"]
+        positions = self._positions(x, pos)
+        mamba_cache = None if cache is None else cache["mamba"]
+        new, ks, vs = [], [], []
+        for i in range(cfg.n_layers):
+            if i % cfg.shared_attn_every == 0:
+                inv = i // cfg.shared_attn_every
+                ic = None if cache is None else {"k": cache["shared_k"][inv],
+                                                 "v": cache["shared_v"][inv]}
+                a, kv = attention_block(
+                    sp["attn"], apply_norm(sp["ln1"], x), cfg, mode=mode,
+                    positions=positions, cache=ic, cache_pos=pos,
+                    impl=self.attn_impl, kv_block=self.kv_block)
+                x = x + a
+                x = x + apply_mlp(sp["mlp"], apply_norm(sp["ln2"], x),
+                                  cfg.mlp_kind)
+                if mode == "prefill":
+                    ks.append(kv["k"])
+                    vs.append(kv["v"])
+            lp = pr.tree_map(lambda a: a[i], params["layers"])
+            x, new_lc = self._mamba_layer(lp, x, mode, mamba_cache, i)
+            new.append(new_lc)
+        if mode == "prefill":
+            return x, {"mamba": self._stack_layers(new),
+                       "shared_k": torch.stack(ks),
+                       "shared_v": torch.stack(vs)}
+        return x, cache
+
     def forward(self, params, batch: dict, mode: str, cache=None,
                 pos: Optional[int] = None):
         """Returns (logits, aux_loss, new_cache); aux_loss is 0 (no MoE)."""
-        x = embed_tokens(params["embed"], batch["tokens"], self.cfg)
-        x, caches = self._dense_stack(params, x, mode, cache, pos)
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        if cfg.family == "ssm":
+            x, caches = self._ssm_stack(params, x, mode, cache)
+        elif cfg.family == "hybrid":
+            x, caches = self._hybrid_stack(params, x, mode, cache, pos)
+        else:
+            x, caches = self._dense_stack(params, x, mode, cache, pos)
         x = apply_norm(params["final_norm"], x)
-        logits = logits_from_hidden(params["embed"], x, self.cfg)
+        logits = logits_from_hidden(params["embed"], x, cfg)
         return logits, 0.0, caches
 
     # ------------------------------------------------------------ entry points
@@ -147,5 +262,5 @@ class LM:
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "blocked",
-                kv_block: int = 1024) -> LM:
-    return LM(cfg, attn_impl=attn_impl, kv_block=kv_block)
+                kv_block: int = 1024, ssd_impl: str = "chunked") -> LM:
+    return LM(cfg, attn_impl=attn_impl, kv_block=kv_block, ssd_impl=ssd_impl)

@@ -21,7 +21,7 @@ class P:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"       # normal | zeros | ones | embed
+    init: str = "normal"       # normal | zeros | ones | embed | conv | a_log | dt_bias
     scale: float = 1.0         # fan-in style scale override (0 -> auto)
 
     def __post_init__(self):
@@ -68,14 +68,26 @@ def _init_leaf(gen: torch.Generator, p: P, dtype: torch.dtype) -> torch.Tensor:
         return torch.ones(p.shape, dtype=dtype, device=dev)
     if p.init == "embed":
         return (torch.randn(p.shape, generator=gen, device=dev) * 0.02).to(dtype)
-    if p.init != "normal":    # conv / a_log / dt_bias come with the SSM slice
-        raise NotImplementedError(f"init {p.init!r} is not ported yet")
-    # Truncated normal, fan-in scaled.  Fan-in comes from one layer's shape:
-    # the reference takes it from the stacked leaf, whose leading axis is the
-    # layer count (std 1/sqrt(28) for every chatglm3-6b matrix, which drives
-    # the random full-width model into saturation).
-    shape = p.shape[1:] if p.axes[:1] == ("layers",) else p.shape
-    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    if p.init == "a_log":       # mamba2: A ~ U[1, 16), stored as log A
+        u = torch.rand(p.shape, generator=gen, device=dev)
+        return torch.log(u.mul_(15.0).add_(1.0)).to(dtype)
+    if p.init == "dt_bias":     # softplus^-1 of dt, log-uniform in [1e-3, 1e-1]
+        u = torch.rand(p.shape, generator=gen, device=dev)
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(u.mul_(hi - lo).add_(lo))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if p.init == "conv":        # fan-in is the kernel width, shape[-1]
+        fan_in = p.shape[-1]
+    elif p.init == "normal":
+        # Fan-in comes from one layer's shape: the reference takes it from
+        # the stacked leaf, whose leading axis is the layer count (std
+        # 1/sqrt(28) for every chatglm3-6b matrix, which drives the random
+        # full-width model into saturation).
+        shape = p.shape[1:] if p.axes[:1] == ("layers",) else p.shape
+        fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    else:
+        raise ValueError(f"unknown init {p.init!r}")
+    # truncated normal, fan-in scaled
     std = p.scale / math.sqrt(max(fan_in, 1))
     return _truncated_normal(p.shape, gen).mul_(std).to(dtype)
 

@@ -102,6 +102,9 @@ class ServeEngine:
         return logits, self._pad_cache(cache)
 
     def _pad_cache(self, cache):
+        """Pad the leaves' 'kvseq' axis to ``max_seq``: the dense family's
+        k/v, the hybrid family's shared_k/shared_v.  The SSM state and conv
+        windows have no 'kvseq' axis and pass through as they are."""
         target = self.max_seq
 
         def pad_leaf(x, p):

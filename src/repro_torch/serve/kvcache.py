@@ -1,4 +1,9 @@
-"""KV-cache sizing from the spec tree declared in ``LM.cache_specs``."""
+"""Cache sizing from the spec tree declared in ``LM.cache_specs``.
+
+The dense family's k/v and the hybrid family's shared_k/shared_v grow with
+the sequence; the Mamba2 conv windows and SSD state do not (an ssm model has
+0 bytes per token).
+"""
 from __future__ import annotations
 
 import torch

@@ -3,10 +3,17 @@
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so on the card it runs as
 
-    python -m pytest -q -m cuda --noconftest tests/test_torch_kernels_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
+        tests/test_torch_kernels_cuda.py
 
-Tolerances are the reference's kernel-test ones: 2e-5 in f32 (the kernel
-runs f32 in full f32, never TF32), 2e-2 in bf16.
+Flash attention (K3) is held at the reference's kernel-test tolerances: 2e-5
+in f32 (the kernel runs f32 in full f32, never TF32), 2e-2 in bf16.  The SSD
+chunk kernel (K4) is held to its plain version at 1e-3 on its f32 outputs
+(both compute in f32, but the kernel's cumsum is a warp scan and its dot
+products sum in another order; at Q = 256 ``cs`` reaches ~-230 over a chunk,
+where one f32 step is 1.5e-5, so y of magnitude ~10 differs by ~1e-3) and
+at 2e-2 on y_diag in bf16 (stored in bf16); states and gamma are f32 in both
+dtypes.
 """
 import numpy as np
 import pytest
@@ -14,6 +21,8 @@ import torch
 
 from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models.lm import build_model
 from repro_torch.serve.engine import ServeEngine
 
@@ -90,4 +99,116 @@ def test_reduced_serve_through_kernel_matches_blocked(cuda_device):
     got = ServeEngine(flash, params, max_seq=48).generate(prompts, 6)
     assert fa.flash_attention_bhsd.launches == before + cfg.n_layers * 2
     want = ServeEngine(blocked, params, max_seq=48).generate(prompts, 6)
+    assert got == want
+
+
+# ------------------------------------------------------------------ K4
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+SSD_GRID = [  # (L, H, P, N, chunk): the reference's grid, Q < chunk, ragged
+    (64, 2, 16, 16, 16), (128, 4, 32, 32, 32), (96, 2, 16, 8, 32),
+    (100, 3, 64, 128, 256), (300, 2, 64, 64, 256), (200, 2, 128, 256, 128)]
+
+
+def _ssd_inputs(device, L, H, P, N, seed, broadcast=False,
+                dtype=torch.float32):
+    """The reference test's distributions: x ~ N(0,1), dt = softplus(N(0,1)),
+    A = -exp(0.5 N(0,1)) in f32, B, C ~ 0.5 N(0,1); broadcast = B/C shared by
+    the heads as a stride-0 expand."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(device)
+
+    x = t((2, L, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(t((2, L, H))).to(dtype)
+    A = -torch.exp(t(H) * 0.5)
+    heads = 1 if broadcast else H
+    Bm, Cm = ((0.5 * t((2, L, heads, N))).to(dtype).expand(2, L, H, N)
+              for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _chunks(t, Q):
+    B, L = t.shape[:2]
+    return t[:, :L - L % Q].reshape(B, (L - L % Q) // Q, Q, *t.shape[2:])
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,H,P,N,chunk", SSD_GRID)
+def test_ssd_chunk_kernel_matches_plain(cuda_device, L, H, P, N, chunk,
+                                        dtype, broadcast):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L, H, P, N, 6, broadcast,
+                                   dtype)
+    Q = min(chunk, L)
+    args = [_chunks(t, Q) for t in (x, dt)] + [A] \
+        + [_chunks(t, Q) for t in (Bm, Cm)]
+    assert (args[3].stride(3) == 0) == broadcast
+    before = ssd.ssd_chunk.launches
+    got = ssd.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunk.launches == before + 1
+    want = ssd.ssd_chunk_plain(*args)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype \
+        == torch.float32
+    f32_tol = SSD_TOL[torch.float32]
+    for g, w, tol in zip(got, want, (SSD_TOL[dtype], f32_tol, f32_tol)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("L,H,P,N,chunk", SSD_GRID[:3])
+def test_ssd_scan_kernel_matches_sequential_ref(cuda_device, L, H, P, N,
+                                                chunk):
+    """The reference's own test on the card: ops.ssd_scan through K4 against
+    the token-by-token recurrence at 2e-3."""
+    from repro_torch.kernels import ref
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L, H, P, N, 7)
+    y, state = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y_ref, state_ref = ref.ssd_ref(x, dt, A, Bm, Cm)
+    for g, w in ((y, y_ref), (state, state_ref)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_ssd_scan_kernel_initial_state_split(cuda_device):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 64, 2, 16, 16, 8, True)
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    y1, s1 = ops.ssd_scan(x[:, :40], dt[:, :40], A, Bm[:, :40], Cm[:, :40],
+                          chunk=16)
+    y2, s2 = ops.ssd_scan(x[:, 40:], dt[:, 40:], A, Bm[:, 40:], Cm[:, 40:],
+                          chunk=16, initial_state=s1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).cpu().numpy(),
+                               y.cpu().numpy(), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(s2.cpu().numpy(), s.cpu().numpy(), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
+    x, dt, A, Bm, Cm = (_chunks(t, 16) if t.dim() > 1 else t
+                        for t in _ssd_inputs(cuda_device, 32, 2, 16, 16, 9))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_chunk(x, dt, A, Bm[..., ::2], Cm[..., ::2])
+    with pytest.raises(TypeError):
+        ssd.ssd_chunk(x.bfloat16(), dt, A, Bm, Cm)
+    big = torch.zeros((1, 1, 300, 2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="Q <="):
+        ssd.ssd_chunk(big, big[..., 0], A, big, big)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_reduced_serve_through_ssd_kernel_matches_chunked(cuda_device, arch):
+    """Reduced mamba2/zamba2 in f32: greedy tokens through K4 equal those
+    through the plain chunked scan, one launch per layer and prompt."""
+    cfg = reduced_config(ARCHS[arch])
+    kernel, chunked = (build_model(cfg, attn_impl="flash", ssd_impl=i)
+                       for i in ("kernel", "chunked"))
+    params = kernel.init(torch.Generator(cuda_device).manual_seed(0))
+    prompts = [[3, 1, 4, 1, 5], list(range(1, 40))]
+    before = ssd.ssd_chunk.launches
+    got = ServeEngine(kernel, params, max_seq=48).generate(prompts, 6)
+    assert ssd.ssd_chunk.launches == before + cfg.n_layers * 2
+    want = ServeEngine(chunked, params, max_seq=48).generate(prompts, 6)
     assert got == want

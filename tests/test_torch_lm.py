@@ -115,7 +115,7 @@ def test_init_draws_from_generator():
     assert torch.equal(a["final_norm"]["scale"], torch.ones(cfg.d_model))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "grok-1-314b",
+@pytest.mark.parametrize("arch", ["paligemma-3b", "grok-1-314b",
                                   "whisper-large-v3"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

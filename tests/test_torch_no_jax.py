@@ -37,10 +37,10 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def _tiny():
+def _tiny(arch="chatglm3-6b"):
     from repro_torch.configs import ARCHS, reduced_config
     from repro_torch.models.lm import build_model
-    model = build_model(reduced_config(ARCHS["chatglm3-6b"]))
+    model = build_model(reduced_config(ARCHS[arch]))
     return model, model.init(torch.Generator().manual_seed(0))
 
 
@@ -72,3 +72,64 @@ def test_ops_never_fall_back_to_the_cpu():
     k = torch.zeros((1, 8, 2, 32), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.flash_attention(q, k, k, causal=True)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_entry_points_raise_without_card(no_card, arch):
+    from repro_torch.launch import serve
+    from repro_torch.models.ssm import init_mamba_cache
+    from repro_torch.serve.engine import ServeEngine
+    model, params = _tiny(arch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--reduced", "--requests", "1",
+                    "--max-new", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_mamba_cache(model.cfg, 1, torch.float32)
+    ServeEngine(model, params, device="cpu").generate([[1, 2, 3]], 2)
+
+
+def test_ssd_scan_on_cpu_never_touches_the_kernel_library(monkeypatch):
+    """CPU tensors take the plain version: the CUDA library is never built or
+    loaded, and no launch is counted."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def refuse(name):
+        raise AssertionError(f"kernel library {name} loaded for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = ssd.ssd_chunk.launches
+    x = torch.randn(1, 40, 2, 8)
+    dt = torch.rand(1, 40, 2)
+    bc = torch.randn(1, 40, 1, 4).expand(1, 40, 2, 4)
+    y, state = ops.ssd_scan(x, dt, -torch.ones(2), bc, bc, chunk=16)
+    assert y.shape == x.shape and state.shape == (1, 2, 8, 4)
+    assert ssd.ssd_chunk.launches == before
+
+
+def test_ssd_scan_never_falls_back_to_the_cpu():
+    from repro_torch.kernels import ops
+    x = torch.zeros((1, 32, 2, 8), device="meta")
+    bc = torch.zeros((1, 32, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.ssd_scan(x, torch.zeros((1, 32, 2), device="meta"),
+                     torch.zeros(2, device="meta"), bc, bc, chunk=16)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+def test_ctypes_signatures_match_the_sources(name):
+    """Each C entry point declared for ctypes exists in its CUDA source with
+    as many parameters as argtypes: a mismatch would pass pointers as ints
+    or shift every argument, which only the card would show."""
+    import re
+
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    for fn, (_, argtypes) in _build.SIGNATURES[name].items():
+        m = re.search(rf'extern "C" [^(]*\b{fn}\(([^)]*)\)', src)
+        assert m, f"{fn} not in {name}.cu"
+        assert len(m.group(1).split(",")) == len(argtypes), fn

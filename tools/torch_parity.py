@@ -6,7 +6,8 @@ Recomputes, at the sizes of the ``tests/test_torch_*.py`` parity tests, the
 largest error each of them allows for, and prints a markdown table (test,
 tolerance, max error seen).  Errors are absolute except where the tolerance
 column says "of max" (absolute error over the reference tensor's largest
-magnitude).
+magnitude) or "mixed" (|err| / (1 + |want|), which rtol = atol = tol holds
+to tol).
 """
 from __future__ import annotations
 
@@ -17,15 +18,23 @@ import torch
 
 from repro.configs import ARCHS as JARCHS
 from repro.configs import reduced_config as j_reduced
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
+from repro.kernels.ssd_scan import ssd_chunk_pallas
 from repro.models import attention as ja
 from repro.models import layers as jl
+from repro.models import ssm as jssm
 from repro.models.lm import build_model as j_build
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import attention as ta
 from repro_torch.models import layers as tl
+from repro_torch.models import ssm as tssm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.lm import build_model
 from repro_torch.serve.engine import ServeEngine
@@ -40,6 +49,15 @@ def err(got, want, rel=False):
     want = np.asarray(want, np.float32)
     e = float(np.abs(got - want).max())
     return e / float(np.abs(want).max()) if rel else e
+
+
+def err_mixed(got, want):
+    """max |got - want| / (1 + |want|): the error that rtol = atol = tol
+    allows up to tol."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return float((np.abs(got - want) / (1 + np.abs(want))).max())
 
 
 def flash_rows():
@@ -167,8 +185,195 @@ def lm_and_serve_rows():
     return rows
 
 
+def _ssd_inputs(rng, B, L, H, P, N, G=None):
+    """The reference kernel test's distributions; G groups for B/C when
+    given, else head-broadcast (B, L, H, N)."""
+    return (rng.standard_normal((B, L, H, P), dtype=np.float32),
+            np.log1p(np.exp(rng.standard_normal((B, L, H)))).astype(np.float32),
+            (-np.exp(0.5 * rng.standard_normal(H))).astype(np.float32),
+            (0.5 * rng.standard_normal((B, L, G or H, N))).astype(np.float32),
+            (0.5 * rng.standard_normal((B, L, G or H, N))).astype(np.float32))
+
+
+def ssd_rows():
+    rng = np.random.default_rng(3)
+    chunk_err = 0.0
+    for L, Q, H, P, N in ((64, 16, 2, 16, 16), (128, 32, 4, 32, 32),
+                          (64, 32, 2, 16, 8), (48, 48, 3, 8, 16)):
+        x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, L, H, P, N)
+        nc = L // Q
+        xs = (x.reshape(2, nc, Q, H, P), dt.reshape(2, nc, Q, H), A,
+              Bm.reshape(2, nc, Q, H, N), Cm.reshape(2, nc, Q, H, N))
+        want = ssd_chunk_pallas(*(jnp.asarray(a) for a in xs), interpret=True)
+        got = tssd.ssd_chunk(*(torch.from_numpy(np.ascontiguousarray(a))
+                               for a in xs))
+        chunk_err = max([chunk_err] + [err_mixed(g, w)
+                                       for g, w in zip(got, want)])
+    scan_ops = scan_ref = 0.0
+    for L, H, P, N, chunk in ((64, 2, 16, 16, 16), (128, 4, 32, 32, 32),
+                              (96, 2, 16, 8, 32)):
+        xs = _ssd_inputs(rng, 2, L, H, P, N)
+        got = tops.ssd_scan(*(torch.from_numpy(a) for a in xs), chunk=chunk)
+        want = jops.ssd_scan(*(jnp.asarray(a) for a in xs), chunk=chunk)
+        oracle = jref.ssd_ref(*(jnp.asarray(a) for a in xs))
+        scan_ops = max([scan_ops] + [err_mixed(g, w)
+                                     for g, w in zip(got, want)])
+        scan_ref = max([scan_ref] + [err_mixed(g, w)
+                                     for g, w in zip(got, oracle)])
+    x, dt, A, Bm, Cm = (torch.from_numpy(a)
+                        for a in _ssd_inputs(rng, 1, 64, 2, 16, 16))
+    y, s = tops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    y1, s1 = tops.ssd_scan(x[:, :40], dt[:, :40], A, Bm[:, :40], Cm[:, :40],
+                           chunk=16)
+    y2, s2 = tops.ssd_scan(x[:, 40:], dt[:, 40:], A, Bm[:, 40:], Cm[:, 40:],
+                           chunk=16, initial_state=s1)
+    split = max(err_mixed(torch.cat([y1, y2], 1), y.numpy()),
+                err_mixed(s2, s.numpy()))
+    return [("ssd_chunk plain vs Pallas interpret (y_diag, states, gamma)",
+             "1e-5 mixed", chunk_err),
+            ("ops.ssd_scan vs reference ops.ssd_scan (y, state)",
+             "2e-3 mixed", scan_ops),
+            ("ops.ssd_scan vs ref.ssd_ref (y, state)", "2e-3 mixed",
+             scan_ref),
+            ("ops.ssd_scan split at 40 with initial_state", "2e-3 mixed",
+             split)]
+
+
+def mamba_rows():
+    rng = np.random.default_rng(4)
+    rows = []
+    u = rng.standard_normal((2, 7, 12), dtype=np.float32)
+    w = rng.standard_normal((12, 4), dtype=np.float32) / 2
+    b = rng.standard_normal(12, dtype=np.float32)
+    c = rng.standard_normal((2, 3, 12), dtype=np.float32)
+    conv = max(err(t, j)
+               for cache in (None, c)
+               for t, j in zip(
+                   tssm.causal_conv(torch.from_numpy(u), torch.from_numpy(w),
+                                    torch.from_numpy(b), None if cache is None
+                                    else torch.from_numpy(cache)),
+                   jssm.causal_conv(jnp.asarray(u), jnp.asarray(w),
+                                    jnp.asarray(b), None if cache is None
+                                    else jnp.asarray(cache))))
+    rows.append(("causal_conv, with and without cache", "1e-5 of max", conv))
+    chunked = 0.0
+    for L, G, chunk in ((64, 1, 16), (50, 2, 16), (12, 1, 16)):
+        xs = _ssd_inputs(rng, 2, L, 4, 8, 16, G=G)
+        got = tssm.ssd_chunked(*(torch.from_numpy(a) for a in xs), chunk)
+        want = jssm.ssd_chunked(*(jnp.asarray(a) for a in xs), chunk)
+        chunked = max([chunked] + [err(g, w_, rel=True)
+                                   for g, w_ in zip(got, want)])
+    rows.append(("ssd_chunked (G 1 and 2, ragged L)", "1e-4 of max", chunked))
+    args = (rng.standard_normal((2, 4, 8, 16), dtype=np.float32),
+            rng.standard_normal((2, 4, 8), dtype=np.float32),
+            np.log1p(np.exp(rng.standard_normal((2, 4)))).astype(np.float32),
+            (-np.exp(0.5 * rng.standard_normal(4))).astype(np.float32),
+            rng.standard_normal((2, 2, 16), dtype=np.float32),
+            rng.standard_normal((2, 2, 16), dtype=np.float32))
+    dec = max(err(g, w_, rel=True) for g, w_ in zip(
+        tssm.ssd_decode_step(*(torch.from_numpy(a) for a in args)),
+        jssm.ssd_decode_step(*(jnp.asarray(a) for a in args))))
+    rows.append(("ssd_decode_step", "1e-5 of max", dec))
+    x = rng.standard_normal((2, 5, 64), dtype=np.float32) * 3
+    g = rng.standard_normal((2, 5, 64), dtype=np.float32)
+    sc = 1 + 0.1 * rng.standard_normal(64, dtype=np.float32)
+    rows.append(("rms_norm_gated", "1e-5 of max", err(
+        tl.rms_norm_gated(torch.from_numpy(x), torch.from_numpy(sc),
+                          torch.from_numpy(g)),
+        jl.rms_norm_gated(jnp.asarray(x), jnp.asarray(sc), jnp.asarray(g)),
+        rel=True)))
+    return rows
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def ssm_lm_rows():
+    """Reduced mamba2/zamba2 LM prefill (logits + cache) and two decode
+    steps against the reference, per impl; greedy ServeEngine tokens; and
+    the reference's own jnp-vs-Pallas gap in bf16 (its init, 200 tokens)."""
+    rows = []
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        jcfg, tcfg = j_reduced(JARCHS[arch]), reduced_config(ARCHS[arch])
+        rng = np.random.default_rng(0)
+        tree = jax.tree.map(
+            lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape))
+            .astype(np.float32), j_build(jcfg).init(jax.random.PRNGKey(0)))
+        tp = params_from_jax(tree, tcfg, device="cpu")
+        toks = np.random.default_rng(1).integers(0, tcfg.vocab_size,
+                                                 size=(2, 21))
+        for impl, jimpl in (("chunked", "jnp"), ("kernel", "pallas")):
+            jm = j_build(jcfg, attn_impl="flash", ssd_impl=jimpl)
+            tm = build_model(tcfg, attn_impl="flash", ssd_impl=impl)
+            jlog, jc = jax.jit(jm.prefill_fn)(tree, {"tokens": toks})
+            tlog, tc = tm.prefill_fn(tp, {"tokens": torch.from_numpy(toks)})
+            jf, tf = _flat(jc), _flat(tc)
+            pre = max([err(tlog, jlog, rel=True)]
+                      + [err(tf[n], jf[n], rel=True) for n in jf])
+            grow = {n: np.pad(np.asarray(a), ((0, 0), (0, 0), (0, 3), (0, 0),
+                                              (0, 0)))
+                    if n.startswith("shared_") else np.asarray(a)
+                    for n, a in jf.items()}
+
+            def nest(flat):
+                out = {}
+                for n, a in flat.items():
+                    *path, leaf = n.split("/")
+                    d = out
+                    for k in path:
+                        d = d.setdefault(k, {})
+                    d[leaf] = a
+                return out
+
+            jcache = nest(grow)
+            tcache = nest({n: torch.from_numpy(a.copy())
+                           for n, a in grow.items()})
+            nxt = np.argmax(np.asarray(jlog), axis=-1)[:, None]
+            dec = 0.0
+            for pos in (21, 22):
+                jlog2, jcache = jax.jit(jm.decode_fn)(
+                    tree, jcache, {"tokens": nxt, "pos": np.int32(pos)})
+                tlog2, tcache = tm.decode_fn(
+                    tp, tcache, {"tokens": torch.from_numpy(nxt), "pos": pos})
+                jf2, tf2 = _flat(jcache), _flat(tcache)
+                dec = max([dec, err(tlog2, jlog2, rel=True)]
+                          + [err(tf2[n], jf2[n], rel=True) for n in jf2])
+                nxt = np.argmax(np.asarray(jlog2), axis=-1)[:, None]
+            r = np.random.default_rng(2)
+            prompts = [[int(t) for t in r.integers(0, tcfg.vocab_size, size=n)]
+                       for n in (4, 17, 33)]
+            want = JServeEngine(jm, tree, max_seq=40).generate(
+                prompts, max_new_tokens=5)
+            got = ServeEngine(tm, tp, max_seq=40, device="cpu").generate(
+                prompts, max_new_tokens=5)
+            mism = sum(a != b for g, w in zip(got, want) for a, b in zip(g, w))
+            rows += [
+                (f"reduced {arch} prefill logits + cache, {impl}",
+                 "1e-4 of max", pre),
+                (f"reduced {arch} 2 decode steps, logits + cache, {impl}",
+                 "1e-4 of max", dec),
+                (f"reduced {arch} ServeEngine greedy tokens, {impl} "
+                 "(mismatched tokens)", "exact", mism)]
+        p = j_build(jcfg).init(jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+        toks = np.random.default_rng(0).integers(0, jcfg.vocab_size,
+                                                 size=(1, 200))
+        logits = {impl: np.asarray(jax.jit(j_build(
+            jcfg, ssd_impl=impl, attn_impl="flash").prefill_fn)(
+                p, {"tokens": toks})[0], np.float32)
+            for impl in ("jnp", "pallas")}
+        rows.append((f"reference only: reduced {arch} bf16 prefill logits, "
+                     "jnp vs pallas", "none (a measurement)",
+                     err(logits["pallas"], logits["jnp"], rel=True)))
+    return rows
+
+
 def main() -> int:
-    rows = flash_rows() + layer_rows() + attention_rows() + lm_and_serve_rows()
+    rows = (flash_rows() + layer_rows() + attention_rows() + lm_and_serve_rows()
+            + ssd_rows() + mamba_rows() + ssm_lm_rows())
     print("| test | tolerance | max error seen |")
     print("| --- | --- | --- |")
     for name, tol, e in rows:
