@@ -45,6 +45,12 @@ SIGNATURES = {
              ctypes.POINTER(ctypes.c_longlong), _P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
+    "ssd_scan_bwd": {
+        "repro_ssd_chunk_bwd": (
+            ctypes.c_int,
+            [_P] * 14 + [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong), _P]),
+        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

@@ -12,7 +12,9 @@ function live here:
 
 Dispatch is by the tensors' device and never falls back: a CUDA tensor
 launches the kernel or raises.  ``flash_attention_bhsd.launches`` counts
-kernel launches.
+kernel launches.  The kernel has no backward (nor has the reference's):
+on CUDA, a call that would need a gradient raises instead of returning a
+result without one.
 """
 from __future__ import annotations
 
@@ -100,6 +102,10 @@ def _launch(q, k, v, out, causal: bool) -> None:
     flash_attention_bhsd.launches += 1
 
 
+def _device_type(t: torch.Tensor) -> str:
+    return t.device.type
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
                          block_k: int = 128) -> torch.Tensor:
@@ -114,11 +120,19 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     memory, so the models' layout costs no copy.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
+    device = _device_type(q)
+    if device == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
                                      block_k=block_k)
-    if q.device.type != "cuda":
+    if device != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel's output has no grad_fn: a loss through it would lose
+        # this term's gradient silently
+        raise RuntimeError(
+            "the flash attention kernel (K3) has no backward, as in the "
+            "reference; train with attn_impl='blocked', or run it under "
+            "torch.no_grad()")
     D = q.shape[3]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, "

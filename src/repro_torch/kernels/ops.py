@@ -38,7 +38,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128,
              initial_state: Optional[torch.Tensor] = None):
     """Full SSD scan = the intra-chunk kernel (K4) + the inter-chunk
-    recurrence in torch ops.
+    recurrence in torch ops.  Differentiable end to end: K5 is the
+    intra-chunk pass's backward, autograd does the rest (the recurrence,
+    ``y_off``, the padding and the head broadcast); the gradient of ``y``
+    reaches K5 through its strides.
 
     x: (B,L,H,P); dt: (B,L,H) post-softplus, in x's dtype; A: (H,);
     Bm, Cm: (B,L,H,N) (head-broadcast; a stride-0 ``expand`` is not copied);
@@ -61,14 +64,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y_diag, states, gamma = _ssd.ssd_chunk(xc, dtc, A, Bc, Cc)
 
     # inter-chunk recurrence over nc (lax.scan in the reference): prev[:, c]
-    # is the state entering chunk c, (B,H,N,P) in f32
+    # is the state entering chunk c, (B,H,N,P) in f32; autograd carries the
+    # gradients of states and gamma back through it
     s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
          if initial_state is None
          else initial_state.transpose(-1, -2).float())
-    prev = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=x.device)
+    prevs = []
     for c in range(nc):
-        prev[:, c] = s
+        prevs.append(s)
         s = s * gamma[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(prevs, dim=1)
 
     # inter-chunk output: exp(cs_i) * C_i . prev_state
     cs = torch.cumsum(dtc.float() * A.float(), dim=2)         # (B,nc,Q,H)

@@ -1,11 +1,13 @@
-"""Parameters of the JAX reference, as numpy, into the port's parameters.
+"""Parameters between the JAX reference (as numpy) and the port.
 
     params = params_from_jax(jax.tree.map(np.asarray, jax_params), cfg,
                              device="cpu", dtype=torch.float32)
+    tree = params_to_numpy(params)     # the reverse, f32 numpy leaves
 
 The trees have the same structure for every ported family (dense, ssm,
-hybrid), so both packages then compute the same function.  Takes numpy (never
-JAX arrays), so this module needs no JAX.
+hybrid), so both packages then compute the same function, and updated
+parameters compare leaf by leaf.  Takes and gives numpy (never JAX arrays),
+so this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -30,3 +32,8 @@ def params_from_jax(tree, cfg: ModelConfig, device: str | torch.device = "cuda",
                                                             dtype=dtype)
 
     return pr.tree_map(convert, tree, LM(cfg).param_specs())
+
+
+def params_to_numpy(tree):
+    """The port's parameter tree as f32 numpy arrays, the same structure."""
+    return pr.tree_map(lambda t: t.detach().float().cpu().numpy(), tree)

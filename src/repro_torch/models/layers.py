@@ -119,3 +119,16 @@ def logits_from_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     if cfg.tie_embeddings:
         return x @ p["table"].T
     return x @ p["head"]
+
+
+# --------------------------------------------------------------------- loss
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    vocab_size: int) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32.  logits: (B,S,Vp) for tokens
+    (B,S).  As in the reference, the padded vocabulary entries stay in the
+    log-sum-exp; labels are always < ``vocab_size``."""
+    lg = logits[:, :-1].float()
+    tg = tokens[:, 1:]
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tg[..., None].long())[..., 0]
+    return (lse - picked).mean()

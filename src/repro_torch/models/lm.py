@@ -3,6 +3,7 @@
 Counterpart of ``repro.models.lm``.  ``LM`` builds the parameter-spec tree,
 initializes it and provides the entry points:
 
+* ``loss_fn(params, batch)``            — next-token loss (``mode="train"``)
 * ``prefill_fn(params, batch)``         — last-position logits + cache
 * ``decode_fn(params, cache, batch)``   — one new token against the cache
 
@@ -12,13 +13,17 @@ Parameters keep the reference's tree (per-layer leaves stacked on a leading
 state for ``ssm``, and those plus ``shared_k``/``shared_v`` (one entry per
 invocation of the shared block) for ``hybrid`` (zamba2).  So both packages
 compare leaf for leaf.  ``lax.scan`` over layers becomes a Python loop over
-layer views.
+layer views (one ``unbind`` per stacked leaf).  In training with
+``cfg.remat == "full"`` each layer runs under
+``torch.utils.checkpoint.checkpoint`` (``jax.checkpoint`` in the
+reference), so its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve
@@ -31,6 +36,7 @@ from .layers import (
     embed_tokens,
     logits_from_hidden,
     mlp_params,
+    next_token_loss,
     norm_params,
 )
 from .params import P
@@ -49,6 +55,14 @@ def stack_specs(tree, n: int):
     """Prepend a 'layers' axis to every leaf of a layer spec tree."""
     return pr.tree_map(
         lambda p: P((n,) + p.shape, ("layers",) + p.axes, p.init, p.scale), tree)
+
+
+def layer_views(tree, n: int) -> list:
+    """The n per-layer trees of a tree of stacked leaves, from one ``unbind``
+    per leaf.  Indexing ``a[i]`` in the layer loop instead would make the
+    backward of each select write a zero tensor the size of the whole leaf."""
+    per_leaf = pr.tree_map(lambda a: a.unbind(0), tree)
+    return [pr.tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
 
 
 class LM:
@@ -152,22 +166,32 @@ class LM:
             return torch.arange(S, device=x.device)[None, :]
         return torch.full((B, 1), pos, dtype=torch.long, device=x.device)
 
+    def _run_layer(self, fn, mode: str, *args):
+        """``fn(*args)``, under activation checkpointing in training with
+        ``remat == "full"``."""
+        if mode == "train" and self.cfg.remat == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _dense_stack(self, params, x, mode: str, cache, pos: Optional[int]):
         cfg = self.cfg
         positions = self._positions(x, pos)
+
+        def layer(x, lp, lc):
+            a, kv = attention_block(
+                lp["attn"], apply_norm(lp["ln1"], x), cfg, mode=mode,
+                positions=positions, cache=lc, cache_pos=pos,
+                impl=self.attn_impl, kv_block=self.kv_block)
+            x = x + a
+            x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x),
+                              cfg.mlp_kind)
+            return x, kv
+
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            lp = pr.tree_map(lambda a: a[i], params["layers"])
+        for i, lp in enumerate(layer_views(params["layers"], cfg.n_layers)):
             lc = None if cache is None else {"k": cache["k"][i],
                                              "v": cache["v"][i]}
-            a_in = apply_norm(lp["ln1"], x)
-            a, kv = attention_block(
-                lp["attn"], a_in, cfg, mode=mode, positions=positions,
-                cache=lc, cache_pos=pos, impl=self.attn_impl,
-                kv_block=self.kv_block)
-            x = x + a
-            f_in = apply_norm(lp["ln2"], x)
-            x = x + apply_mlp(lp["mlp"], f_in, cfg.mlp_kind)
+            x, kv = self._run_layer(layer, mode, x, lp, lc)
             if mode == "prefill":
                 ks.append(kv["k"])
                 vs.append(kv["v"])
@@ -175,14 +199,17 @@ class LM:
             return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
         return x, cache
 
-    def _mamba_layer(self, lp, x, mode: str, cache, i: int):
-        """Pre-norm Mamba2 residual layer i.  Returns (x, the layer's new
-        cache); decode updates the layer's views of ``cache`` in place."""
-        lc = None if cache is None else pr.tree_map(lambda a: a[i], cache)
+    def _mamba_layer(self, x, lp, mode: str, lc):
+        """Pre-norm Mamba2 residual layer with the layer's cache ``lc``.
+        Returns (x, the layer's new cache); decode updates ``lc`` in place."""
         m, new_lc = apply_mamba(lp["mamba"], apply_norm(lp["ln"], x),
                                 self.cfg, mode=mode, cache=lc,
                                 impl=self.ssd_impl)
         return x + m, new_lc
+
+    @staticmethod
+    def _layer_cache(cache, i: int):
+        return None if cache is None else pr.tree_map(lambda a: a[i], cache)
 
     @staticmethod
     def _stack_layers(per_layer: list) -> dict:
@@ -191,9 +218,10 @@ class LM:
 
     def _ssm_stack(self, params, x, mode: str, cache):
         new = []
-        for i in range(self.cfg.n_layers):
-            lp = pr.tree_map(lambda a: a[i], params["layers"])
-            x, new_lc = self._mamba_layer(lp, x, mode, cache, i)
+        for i, lp in enumerate(layer_views(params["layers"],
+                                           self.cfg.n_layers)):
+            x, new_lc = self._run_layer(self._mamba_layer, mode, x, lp, mode,
+                                        self._layer_cache(cache, i))
             new.append(new_lc)
         if mode == "prefill":
             return x, self._stack_layers(new)
@@ -206,12 +234,10 @@ class LM:
         sp = params["shared_attn"]
         positions = self._positions(x, pos)
         mamba_cache = None if cache is None else cache["mamba"]
-        new, ks, vs = [], [], []
-        for i in range(cfg.n_layers):
-            if i % cfg.shared_attn_every == 0:
-                inv = i // cfg.shared_attn_every
-                ic = None if cache is None else {"k": cache["shared_k"][inv],
-                                                 "v": cache["shared_v"][inv]}
+
+        def layer(x, lp, lc, ic, use_attn: bool):
+            kv = None
+            if use_attn:
                 a, kv = attention_block(
                     sp["attn"], apply_norm(sp["ln1"], x), cfg, mode=mode,
                     positions=positions, cache=ic, cache_pos=pos,
@@ -219,11 +245,22 @@ class LM:
                 x = x + a
                 x = x + apply_mlp(sp["mlp"], apply_norm(sp["ln2"], x),
                                   cfg.mlp_kind)
-                if mode == "prefill":
-                    ks.append(kv["k"])
-                    vs.append(kv["v"])
-            lp = pr.tree_map(lambda a: a[i], params["layers"])
-            x, new_lc = self._mamba_layer(lp, x, mode, mamba_cache, i)
+            x, new_lc = self._mamba_layer(x, lp, mode, lc)
+            return x, new_lc, kv
+
+        new, ks, vs = [], [], []
+        for i, lp in enumerate(layer_views(params["layers"], cfg.n_layers)):
+            use_attn = i % cfg.shared_attn_every == 0
+            ic = None
+            if use_attn and cache is not None:
+                inv = i // cfg.shared_attn_every
+                ic = {"k": cache["shared_k"][inv], "v": cache["shared_v"][inv]}
+            x, new_lc, kv = self._run_layer(
+                layer, mode, x, lp, self._layer_cache(mamba_cache, i), ic,
+                use_attn)
+            if use_attn and mode == "prefill":
+                ks.append(kv["k"])
+                vs.append(kv["v"])
             new.append(new_lc)
         if mode == "prefill":
             return x, {"mamba": self._stack_layers(new),
@@ -247,6 +284,14 @@ class LM:
         return logits, 0.0, caches
 
     # ------------------------------------------------------------ entry points
+    def loss_fn(self, params, batch: dict):
+        """Mean next-token loss over ``batch["tokens"]`` (B, S), through the
+        training forward.  Returns (loss + aux, {"ce", "aux"})."""
+        logits, aux, _ = self.forward(params, batch, "train")
+        loss = next_token_loss(logits, batch["tokens"], self.cfg.vocab_size)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        return loss + aux, {"ce": loss, "aux": aux}
+
     def prefill_fn(self, params, batch: dict):
         """Returns (last-position logits, cache sized to the prefix)."""
         logits, _, caches = self.forward(params, batch, "prefill")

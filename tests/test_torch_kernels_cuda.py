@@ -13,7 +13,16 @@ chunk kernel (K4) is held to its plain version at 1e-3 on its f32 outputs
 products sum in another order; at Q = 256 ``cs`` reaches ~-230 over a chunk,
 where one f32 step is 1.5e-5, so y of magnitude ~10 differs by ~1e-3) and
 at 2e-2 on y_diag in bf16 (stored in bf16); states and gamma are f32 in both
-dtypes.
+dtypes.  The SSD backward kernel (K5) and its plain version are held to
+the same math in f64 as ``chip_smoke.py`` holds them: each
+within 2e-2 + 2e-2|f64| on dx in bf16 and, on the f32 outputs, within
+1e-3 + 1e-3|f64| plus 1e-4 of the largest |f64| in the output's (batch,
+chunk, head) cell (for da, in its head over batch and chunks), and the two
+within twice that of each other: ddt, da and dB come out of sums whose
+terms cancel, so the f32 rounding of the terms lands at the scale of the
+cell's largest value.
+Gradients of ``ops.ssd_scan`` through K4 + K5 are held against autograd
+through ``ssd_ref`` at 2e-3, the reference's tolerance for the scan.
 """
 import numpy as np
 import pytest
@@ -212,3 +221,120 @@ def test_reduced_serve_through_ssd_kernel_matches_chunked(cuda_device, arch):
     assert ssd.ssd_chunk.launches == before + cfg.n_layers * 2
     want = ServeEngine(chunked, params, max_seq=48).generate(prompts, 6)
     assert got == want
+
+
+# ------------------------------------------------------------------ K5
+BWD_GRID = SSD_GRID[:5] + [(48, 3, 8, 16, 48)]
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,H,P,N,chunk", BWD_GRID)
+def test_ssd_bwd_kernel_matches_plain(cuda_device, L, H, P, N, chunk, dtype,
+                                      broadcast):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L, H, P, N, 10, broadcast,
+                                   dtype)
+    Q = min(chunk, L)
+    args = [_chunks(t, Q) for t in (x, dt)] + [A] \
+        + [_chunks(t, Q) for t in (Bm, Cm)]
+    B, nc = args[0].shape[:2]
+    rng = np.random.default_rng(11)
+    dy = torch.from_numpy(rng.standard_normal(
+        (B, nc, Q, H, P), dtype=np.float32)).to(cuda_device, dtype)
+    dstates = torch.from_numpy(rng.standard_normal(
+        (B, nc, H, N, P), dtype=np.float32)).to(cuda_device)
+    dgamma = torch.from_numpy(rng.standard_normal(
+        (B, nc, H), dtype=np.float32)).to(cuda_device)
+    before = ssd.ssd_chunk_bwd.launches
+    got = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
+    torch.cuda.synchronize()
+    assert ssd.ssd_chunk_bwd.launches == before + 1
+    want = ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma)
+    exact = ssd.ssd_chunk_bwd_plain(*(t.double() for t in (
+        *args, dy, dstates, dgamma)))
+    assert got[0].dtype == dtype
+
+    def allowed(i, ref):
+        if i == 0 and dtype == torch.bfloat16:
+            return 2e-2 * (1 + np.abs(ref))
+        group = {4: (0, 1), 1: (2,)}.get(i, (2, 4))   # head or cell
+        return (1e-3 * (1 + np.abs(ref))
+                + 1e-4 * np.abs(ref).max(group, keepdims=True))
+
+    for i, (g, w, e) in enumerate(zip(got, want, exact)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        g, w, e = (t.double().cpu().numpy() for t in (g, w, e))
+        assert (np.abs(g - e) <= allowed(i, e)).all(), i
+        assert (np.abs(w - e) <= allowed(i, e)).all(), i
+        assert (np.abs(g - w) <= 2 * allowed(i, w)).all(), i
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("L,H,P,N,chunk", SSD_GRID[:3] + [SSD_GRID[4]])
+def test_ssd_scan_grads_match_sequential_ref(cuda_device, L, H, P, N, chunk,
+                                             with_init):
+    """Autograd through ops.ssd_scan (K4 forward, K5 backward, the
+    recurrence in torch ops) against autograd through ssd_ref."""
+    from repro_torch.kernels import ref
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L, H, P, N, 12, True)
+    rng = np.random.default_rng(13)
+    cot_y, cot_s, s0 = (torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)).to(cuda_device)
+        for s in ((2, L, H, P), (2, H, P, N), (2, H, P, N)))
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, dt, A, Bm[:, :, :1], Cm[:, :, :1])]
+        init = s0.clone().requires_grad_(True) if with_init else None
+        y, s = fn(*leaves[:3], *(t.expand(-1, -1, H, -1) for t in leaves[3:]),
+                  initial_state=init)
+        ((y * cot_y).sum() + (s * cot_s).sum()).backward()
+        return [t.grad for t in leaves] + ([init.grad] if with_init else [])
+
+    before = ssd.ssd_chunk_bwd.launches
+    got = grads(lambda *a, **k: ops.ssd_scan(*a, chunk=chunk, **k))
+    assert ssd.ssd_chunk_bwd.launches == before + 1
+    for g, w in zip(got, grads(ref.ssd_ref)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_reduced_training_through_k5_matches_chunked(cuda_device, arch):
+    """Reduced mamba2/zamba2 in f32: the loss and every gradient through K4
+    + K5 against the plain chunked scan (summation order only), and one
+    train step launches K4 twice (remat) and K5 once per layer."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.models import params as pr
+    from repro_torch.train.trainer import make_train_step
+    cfg = reduced_config(ARCHS[arch])
+    params = build_model(cfg).init(torch.Generator(cuda_device).manual_seed(0))
+    toks = {"tokens": torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, size=(2, 40))).to(cuda_device)}
+    leaves = [t.requires_grad_(True) for t in pr.leaves(params)]
+    out = {}
+    for impl in ("kernel", "chunked"):
+        loss, _ = build_model(cfg, ssd_impl=impl).loss_fn(params, toks)
+        out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+    assert out["kernel"][0] == pytest.approx(out["chunked"][0], rel=1e-5)
+    for gk, gc in zip(out["kernel"][1], out["chunked"][1]):
+        assert ((gk - gc).abs().max() <= 1e-4 * gc.abs().max()).item()
+    for t in leaves:
+        t.requires_grad_(False)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 40, 2, "train"))
+    step, opt_init = make_train_step(build_model(cfg, ssd_impl="kernel"), run)
+    before = ssd.ssd_chunk.launches, ssd.ssd_chunk_bwd.launches
+    params = pr.tree_map(lambda t: t.detach().bfloat16(), params)
+    _, _, metrics = step(params, opt_init(params), toks)
+    assert np.isfinite(float(metrics["loss"]))
+    assert (ssd.ssd_chunk.launches - before[0],
+            ssd.ssd_chunk_bwd.launches - before[1]) == (2 * cfg.n_layers,
+                                                        cfg.n_layers)
+
+
+def test_flash_kernel_refuses_to_drop_a_gradient(cuda_device):
+    q = torch.randn((1, 4, 16, 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_bhsd(q, q, q, causal=True)
+    with torch.no_grad():
+        fa.flash_attention_bhsd(q, q, q, causal=True)

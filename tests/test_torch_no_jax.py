@@ -18,7 +18,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(len(names), bad, *names)
 sys.exit(1 if bad else 0)
 """
 
@@ -29,7 +29,13 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                           env={"PYTHONPATH": str(SRC), "PATH": ""})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 25            # configs, models, kernels, serve, launch
+    # configs, models, kernels, serve, launch, and from slice 3 data, train
+    assert n_modules >= 42
+    names = set(proc.stdout.split()[2:])
+    assert {"repro_torch.launch.train", "repro_torch.data.synthetic",
+            "repro_torch.train.trainer", "repro_torch.train.optimizer",
+            "repro_torch.train.schedule", "repro_torch.train.checkpoint",
+            "repro_torch.train.fault"} <= names
 
 
 @pytest.fixture
@@ -133,3 +139,21 @@ def test_ctypes_signatures_match_the_sources(name):
         m = re.search(rf'extern "C" [^(]*\b{fn}\(([^)]*)\)', src)
         assert m, f"{fn} not in {name}.cu"
         assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "chatglm3-6b"])
+def test_train_entry_points_raise_without_card(no_card, arch, tmp_path):
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train
+    argv = ["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
+            "--seq", "8"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    model, _ = _tiny(arch)
+    run = RunConfig(model=model.cfg, shape=ShapeConfig("t", 8, 2, "train"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train_loop(model, run, n_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.build_training(model, run)
+    assert train.main(argv + ["--device", "cpu", "--ckpt-dir",
+                              str(tmp_path)]) == 0      # explicit CPU runs

@@ -21,7 +21,7 @@ from repro.configs import reduced_config as j_reduced
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
-from repro.kernels.ssd_scan import ssd_chunk_pallas
+from repro.kernels.ssd_scan import ssd_chunk_bwd_pallas, ssd_chunk_pallas
 from repro.models import attention as ja
 from repro.models import layers as jl
 from repro.models import ssm as jssm
@@ -371,9 +371,269 @@ def ssm_lm_rows():
     return rows
 
 
+# ------------------------------------------------------------ slice 3
+def ssd_bwd_rows():
+    """K5's plain version against the Pallas backward; gradients of
+    ops.ssd_scan against jax.grad of the reference's and of ssd_ref;
+    apply_mamba through the kernel path against the chunked one."""
+    rng = np.random.default_rng(5)
+    bwd = 0.0
+    for B, L, H, P, N, Q in ((2, 64, 2, 16, 16, 16), (2, 128, 4, 32, 32, 32),
+                             (2, 64, 2, 16, 8, 32), (1, 48, 3, 8, 16, 48),
+                             (1, 40, 2, 16, 8, 40)):
+        nc = L // Q
+        ch = [a.reshape(B, nc, Q, *a.shape[2:]) if a.ndim > 1 else a
+              for a in _ssd_inputs(rng, B, L, H, P, N)]
+        cot = (rng.standard_normal((B, nc, Q, H, P), dtype=np.float32),
+               rng.standard_normal((B, nc, H, N, P), dtype=np.float32),
+               rng.standard_normal((B, nc, H), dtype=np.float32))
+
+        def flat(a):
+            a = np.moveaxis(a, 3, 2)
+            return a.reshape(B, nc * H, Q, *a.shape[4:])
+
+        want = ssd_chunk_bwd_pallas(
+            jnp.asarray(flat(ch[0])), jnp.asarray(flat(ch[1][..., None])[..., 0]),
+            jnp.asarray(np.tile(ch[2], nc)), jnp.asarray(flat(ch[3])),
+            jnp.asarray(flat(ch[4])), jnp.asarray(flat(cot[0])),
+            jnp.asarray(cot[1].reshape(B, nc * H, N, P)),
+            jnp.asarray(cot[2].reshape(B, nc * H)), interpret=True)
+        got = tssd.ssd_chunk_bwd(*(torch.from_numpy(np.ascontiguousarray(a))
+                                   for a in (*ch, *cot)))
+        for g, w in zip(got[:4], want[:4]):
+            g = np.moveaxis(g.numpy(), 3, 2).reshape(np.asarray(w).shape)
+            bwd = max(bwd, err_mixed(g, w))
+        bwd = max(bwd, err_mixed(got[4].reshape(B, nc * H), want[4]))
+
+    grad_ops = grad_ref = 0.0
+    for B, L, H, P, N, chunk in ((2, 64, 2, 16, 16, 16), (2, 128, 4, 32, 32, 32),
+                                 (2, 96, 2, 16, 8, 32), (1, 48, 3, 8, 16, 48),
+                                 (1, 100, 2, 16, 8, 80)):
+        xs = _ssd_inputs(rng, B, L, H, P, N, G=1)
+        cot = (rng.standard_normal((B, L, H, P), dtype=np.float32),
+               rng.standard_normal((B, H, P, N), dtype=np.float32))
+        for s0 in (None, rng.standard_normal((B, H, P, N), dtype=np.float32)):
+            ts = [torch.from_numpy(a).requires_grad_(True) for a in xs]
+            init = None if s0 is None else torch.from_numpy(s0).requires_grad_(True)
+            y, s = tops.ssd_scan(*ts[:3], *(t.expand(-1, -1, H, -1) for t in ts[3:]),
+                                 chunk=chunk, initial_state=init)
+            ((y * torch.from_numpy(cot[0])).sum()
+             + (s * torch.from_numpy(cot[1])).sum()).backward()
+            got = [t.grad for t in ts] + ([] if init is None else [init.grad])
+
+            def jgrads(fn):
+                def loss(*args):
+                    bh, chh = (jnp.broadcast_to(t, t.shape[:2] + (H, N))
+                               for t in args[3:5])
+                    yy, ss = fn(*args[:3], bh, chh,
+                                args[5] if len(args) > 5 else None)
+                    return (yy * cot[0]).sum() + (ss * cot[1]).sum()
+                args = [jnp.asarray(a) for a in xs] + (
+                    [] if s0 is None else [jnp.asarray(s0)])
+                return jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+
+            w_ops = jgrads(lambda x, dt, A, b, c, i: jops.ssd_scan(
+                x, dt, A, b, c, chunk=chunk, initial_state=i))
+            w_ref = jgrads(lambda x, dt, A, b, c, i: jref.ssd_ref(
+                x, dt, A, b, c, initial_state=i))
+            grad_ops = max([grad_ops] + [err_mixed(g, w)
+                                         for g, w in zip(got, w_ops)])
+            grad_ref = max([grad_ref] + [err_mixed(g, w)
+                                         for g, w in zip(got, w_ref)])
+
+    mamba = 0.0
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        cfg = reduced_config(ARCHS[arch])
+        params = build_model(cfg).init(torch.Generator().manual_seed(0))
+        lp = {k: v[0].clone().requires_grad_(True)
+              for k, v in params["layers"]["mamba"].items()}
+        x_in = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (2, 40, cfg.d_model), dtype=np.float32))
+        out = {}
+        for impl in ("chunked", "kernel"):
+            y, _ = tssm.apply_mamba(lp, x_in, cfg, mode="train", impl=impl)
+            out[impl] = (y, torch.autograd.grad((y * y).sum(), list(lp.values())))
+        mamba = max([mamba, err_mixed(out["kernel"][0], out["chunked"][0]
+                                      .detach().numpy())]
+                    + [err_mixed(g, w.numpy()) for g, w in
+                       zip(out["kernel"][1], out["chunked"][1])])
+    return [("ssd_chunk_bwd plain vs Pallas interpret (dx, ddt, dB, dC, da)",
+             "1e-4 mixed", bwd),
+            ("grads of ops.ssd_scan (B/C broadcast, with and without "
+             "initial_state) vs jax.grad of reference ops.ssd_scan",
+             "2e-4 mixed", grad_ops),
+            ("the same vs jax.grad of ref.ssd_ref", "2e-4 mixed", grad_ref),
+            ("apply_mamba train, kernel vs chunked, output and parameter "
+             "grads (reduced mamba2, zamba2)", "5e-3 mixed", mamba)]
+
+
+def train_part_rows():
+    from repro.data.synthetic import SyntheticLMDataset as JDataset
+    from repro.models.layers import next_token_loss as j_ntl
+    from repro.train import optimizer as jopt
+    from repro.train import schedule as jsched
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models.layers import next_token_loss
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import schedule as tsched
+
+    mism = 0
+    for seed, vocab, seq, batch in ((0, 512, 64, 4), (3, 50280, 33, 3),
+                                    (7, 65024, 128, 2)):
+        for step in (0, 1, 17):
+            mism += int(np.sum(
+                SyntheticLMDataset(vocab, seq, batch, seed=seed).batch(step)
+                ["tokens"] != JDataset(vocab, seq, batch, seed=seed)
+                .batch(step)["tokens"]))
+    sched = 0.0
+    for name in ("constant", "linear", "cosine", "rsqrt"):
+        kw = dict(name=name, base_lr=3e-4, warmup_steps=10, total_steps=100)
+        pt = tsched.make_schedule(tsched.ScheduleConfig(**kw))
+        jt = jsched.make_schedule(jsched.ScheduleConfig(**kw))
+        sched = max([sched] + [err_mixed(pt(s), np.asarray(jt(s)))
+                               for s in (0, 1, 5, 9, 10, 11, 50, 99, 100, 250)])
+    rng = np.random.default_rng(0)
+    shapes = {"w": (2, 128, 160), "b": (160,), "e": {"t": (130, 128)}, "s": (3,)}
+    draw = lambda sc: jax.tree.map(  # noqa: E731
+        lambda s: (sc * rng.standard_normal(s)).astype(np.float32), shapes,
+        is_leaf=lambda s: isinstance(s, tuple))
+    params, grads = draw(0.1), draw(0.01)
+    tt = lambda t: jax.tree.map(lambda a: torch.from_numpy(np.array(a)), t)  # noqa: E731
+    opt_rows = []
+    for name in ("adamw", "adafactor"):
+        ji, ju, _ = jopt.make_optimizer(name)
+        ti, tu, _ = topt.make_optimizer(name)
+        jp = jax.tree.map(jnp.asarray, params)
+        js, tp = ji(jp), tt(params)
+        ts = ti(tp)
+        for _ in range(2):
+            jp, js = ju(jax.tree.map(jnp.asarray, grads), js, jp, 3e-4)
+            tp, ts = tu(tt(grads), ts, tp, 3e-4)
+        e = max(err_mixed(g, np.asarray(w)) for g, w in
+                zip(ckpt.flatten((tp, ts)), jax.tree.leaves((jp, js))))
+        opt_rows.append((f"{name}: two updates, parameters and state",
+                         "1e-6 mixed", e))
+    logits = rng.standard_normal((2, 17, 96)).astype(np.float32) * 3
+    toks = rng.integers(0, 80, size=(2, 17))
+    ntl = err_mixed(next_token_loss(torch.from_numpy(logits),
+                                    torch.from_numpy(toks), 80),
+                    np.asarray(j_ntl(jnp.asarray(logits), jnp.asarray(toks), 80)))
+    return [("synthetic batches (mismatched tokens)", "exact", mism),
+            ("schedules (4 kinds, 10 steps)", "1e-6 mixed", sched),
+            *opt_rows,
+            ("next_token_loss with padded vocab", "1e-6 mixed", ntl)]
+
+
+def train_step_rows():
+    """Two train steps of each case from the same state in both packages;
+    AdamW-amplified elements counted apart (tests/test_torch_train.py); and
+    the chained second step's grad_norm gap."""
+    from repro.configs import RunConfig as JRun
+    from repro.configs import ShapeConfig as JShape
+    from repro.data.synthetic import SyntheticLMDataset as JDataset
+    from repro.train.trainer import make_train_step as j_mts
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.trainer import make_train_step
+
+    metric = params_err = chained = 0.0
+    amplified, amp_lr = 0, 0.0
+    for arch, impl, jimpl in (("chatglm3-6b", "chunked", "jnp"),
+                              ("mamba2-1.3b", "chunked", "jnp"),
+                              ("mamba2-1.3b", "kernel", "pallas"),
+                              ("zamba2-1.2b", "kernel", "pallas")):
+        for mb in (0, 1):
+            kw = dict(microbatch=mb, param_dtype="float32",
+                      compute_dtype="float32")
+            jcfg, tcfg = j_reduced(JARCHS[arch]), reduced_config(ARCHS[arch])
+            jrun = JRun(model=jcfg, shape=JShape("t", 32, 2, "train"), **kw)
+            trun = RunConfig(model=tcfg, shape=ShapeConfig("t", 32, 2, "train"),
+                             **kw)
+            r = np.random.default_rng(0)
+            tree = jax.tree.map(
+                lambda a: (np.asarray(a) + 0.05 * r.standard_normal(a.shape))
+                .astype(np.float32), j_build(jcfg).init(jax.random.PRNGKey(0)))
+            ds = JDataset(jcfg.vocab_size, 32, 2, seed=3)
+            jmodel = j_build(jcfg, ssd_impl=jimpl)
+            jstep, *_, jinit = j_mts(jmodel, jrun, None)
+            jstep = jax.jit(jstep)
+            jgrad = jax.jit(jax.grad(   # the reference's: decides amplified
+                lambda p, t: jmodel.loss_fn(p, {"tokens": t})[0]))
+            tmodel = build_model(tcfg, ssd_impl=impl)
+            tstep, tinit = make_train_step(tmodel, trun)
+            jp = jax.tree.map(jnp.asarray, tree)
+            jo = jinit(jp)
+            cp = params_from_jax(tree, tcfg, device="cpu")
+            co = tinit(cp)
+            conv = lambda t: params_from_jax(  # noqa: E731
+                jax.tree.map(np.asarray, t), tcfg, device="cpu")
+            for i in range(2):
+                toks = ds.batch(i)["tokens"]
+                tb = {"tokens": torch.from_numpy(toks).long()}
+                p_in = jax.tree.map(np.asarray, jp)
+                tp, _, tm = tstep(conv(jp), AdamWState(
+                    torch.tensor(int(jo.step), dtype=torch.int32),
+                    conv(jo.mu), conv(jo.nu)), tb)
+                g = _flat(jgrad(p_in, jnp.asarray(toks)))
+                cp, co, cm = tstep(cp, co, tb)           # the port alone
+                jp, jo, jm = jstep(jp, jo, {"tokens": jnp.asarray(toks)})
+                metric = max(metric, err_mixed(tm["loss"], np.asarray(jm["loss"])),
+                             err_mixed(tm["grad_norm"], np.asarray(jm["grad_norm"])))
+                if i == 1:
+                    chained = max(chained, abs(float(cm["grad_norm"])
+                                               / float(jm["grad_norm"]) - 1))
+                got, want = _flat(params_to_numpy(tp)), _flat(jp)
+                for k in want:
+                    w = np.asarray(want[k])
+                    d = np.abs(got[k] - w)
+                    out = d > 1e-4 * (1 + np.abs(w))
+                    gk = np.abs(g[k])
+                    amp = out & (gk < 1e-2 * np.median(gk[gk > 0]))
+                    amplified += int(amp.sum())
+                    if amp.any():
+                        amp_lr = max(amp_lr, float(d[amp].max()) / 3e-4)
+                    params_err = max(params_err,
+                                     float((d / (1 + np.abs(w)))[~amp].max()))
+    return [("train step, 4 models x microbatch 1, 2, two steps from the same "
+             "state: loss, grad_norm", "1e-4 mixed", metric),
+            ("the same, every parameter but AdamW-amplified elements",
+             "1e-4 mixed", params_err),
+            ("the same, AdamW-amplified elements (count)",
+             "none (|g| < 1e-2 median)", amplified),
+            ("the same, largest move apart of an amplified element, in lr",
+             "2", amp_lr),
+            ("chained: the port's own second step, grad_norm relative gap",
+             "none (a measurement)", chained)]
+
+
+def train_loop_rows():
+    import tempfile
+
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import fault
+    cfg = reduced_config(ARCHS["mamba2-1.3b"])
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, 2, "train"),
+                    param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, ssd_impl="kernel")
+    clean = ltrain.train_loop(model, run, n_steps=5, device="cpu", log_every=99)
+    with tempfile.TemporaryDirectory() as d:
+        hit = ltrain.train_loop(model, run, n_steps=5, ckpt_dir=d, ckpt_every=2,
+                                injector=fault.FaultInjector(fail_at_steps=(3,)),
+                                device="cpu", log_every=99)
+    gap = max(abs(a - b) for a, b in zip(hit.losses[:3] + hit.losses[3:],
+                                          clean.losses[:3] + clean.losses[2:]))
+    return [("train_loop with a fault at step 3 vs without: losses", "exact",
+             gap)]
+
+
 def main() -> int:
+    torch.set_num_threads(1)
     rows = (flash_rows() + layer_rows() + attention_rows() + lm_and_serve_rows()
-            + ssd_rows() + mamba_rows() + ssm_lm_rows())
+            + ssd_rows() + mamba_rows() + ssm_lm_rows() + ssd_bwd_rows()
+            + train_part_rows() + train_step_rows() + train_loop_rows())
     print("| test | tolerance | max error seen |")
     print("| --- | --- | --- |")
     for name, tol, e in rows:
