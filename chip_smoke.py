@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card and
-check them.
+"""Drive the PyTorch port's serving, training and calibration paths on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name, count;
-2. the build: ``nvcc`` builds every kernel of the paths from ``src/`` (K3,
-   K4 and K5), one compiler per source, all started together (seconds,
-   ptxas register, shared-memory and spill lines);
+2. the build: ``nvcc`` builds every kernel of the paths from ``src/`` (K1
+   and K2 in ``stream.cu``, K3, K4 and K5), one compiler per source, all
+   started together (seconds, ptxas register, shared-memory and spill
+   lines);
 3. kernel vs plain: each kernel against its plain PyTorch version on the card:
    flash attention (K3) at the unit-test grid and chatglm3-6b prefill shapes;
    the SSD chunk kernel (K4) at the reference's grid, a Q < chunk case and the
@@ -19,7 +20,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version and both against the same math in f64, at the same grid
    and the mamba2-1.3b and zamba2-1.2b training shapes; and the gradient
    of ``ops.ssd_scan`` (K4 + K5) against autograd through the sequential
-   ``ssd_ref``, with and without ``initial_state``;
+   ``ssd_ref``, with and without ``initial_state``; the Table-1 kernel (K1)
+   on all 28 expressions at n = 4096 and at the accuracy table's n, and at
+   every size the fit of phase 15 runs it, and STREAM Triad (K2) in f32 and
+   f64 at every CTA cap and size of phase 17, against their plain versions,
+   with the count of elements that are not bit-identical;
 4. full-width serving of chatglm3-6b (6.24 B parameters, bf16, weights from a
    seeded generator, ``attn_impl="flash"``): 4 requests of 128, 512, 1024 and
    2048 prompt tokens and 32 new tokens each, one ``ServeEngine.generate``
@@ -58,13 +63,26 @@ Phases, in order; any failure exits non-zero and prints no result:
     with the same weights: the losses within 1e-4 relative, every gradient
     leaf within 1e-3 of its largest |g|;
 14. timing: K5 at mamba2-1.3b's training shape beside its bound and its
-    plain version (no single PyTorch call computes this function).
+    plain version (no single PyTorch call computes this function);
+15. the paper's calibration loop (``repro_torch.core.calibrate``): fit the
+    H100 spec from K1 microbenchmarks and print every fitted scalar;
+16. the Fig. 3 accuracy tables, all 28 Table-1 kernels timed through K1
+    and simulated, at Table 1's n x 1024 and x 16384 (HBM-resident), K1's
+    launches counted (28 x (1 + repeats) each), and the O3 sweep's top 8;
+17. the Figs. 4/5 Triad sweep: K2 at 1-132 CTAs, at ~3/4 of the L2 and at
+    twice it, measured against the saturating-bandwidth model;
+18. timing: each K1 expression at the HBM-resident scale and K2 at twice
+    the L2, beside the plain version, one PyTorch call where one computes
+    the function, and the bound (bytes over 3.35 TB/s, f64 flops counted in
+    the SASS over 34 TFLOP/s); each output at these shapes held against the
+    plain version's, as in phase 3.
 
 After each model's serving phase, the profiler's kernel time of one prefill
 of its longest prompt (with each kernel's share) and of 8 decode steps, beside
 the host clock and the device's idle share.
 Each serving and training phase sets every kernel's launch count to 0 just
-before it and reads the counts just after.  Then one ``{"kernels": [...]}`` line and, last,
+before it and reads the counts just after; so does the calibration path
+for K1 and K2.  Then one ``{"kernels": [...]}`` line and, last,
 the ``{"ok": true, ...}`` line.  There is no CPU path: without a CUDA device
 the script exits with 1.
 """
@@ -87,7 +105,8 @@ TIMING_S = 2048
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12         # CUDA-core FMAs, the rate K4's design uses
 HBM_BYTES_PER_S = 3.35e12
-KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")
+KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")  # model paths
+SOURCES = (*KERNELS, "stream")        # csrc/*.cu, built side by side
 KERNEL_FUNCTIONS = {"flash_attention": "flash_fwd_",   # CUDA function names
                     "ssd_scan": "ssd_chunk_fwd", "ssd_scan_bwd": "ssd_bwd_"}
 CUBLAS_FUNCTIONS = ("gemm", "nvjet", "xmma", "cutlass")  # library matmuls
@@ -143,10 +162,429 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-1.3b", "zamba2-1.2b"
 SSM_PROMPT_LENS = (128, 512, 1000, 2048)
 HYBRID_PROMPT_LENS = (512, 2048)
 HYBRID_NEW_TOKENS = 16
+PEAK_F64_FLOPS = 34e12         # CUDA-core f64 (NVIDIA data sheet, SXM)
+# K1 vs plain: the reference's tolerance (tests/test_kernels.py:126-128),
+# |err| <= 1e-12 + 1e-12|plain|; poly16 in f32 at 1e-5 (the kernel fuses
+# each Horner step into one FMA, the plain version rounds twice).  K2: the
+# reference's f32 tolerance, rtol 1e-5 and atol 1e-6, and 1e-12 in f64.
+STREAM_TOL, POLY16_F32_TOL = 1e-12, 1e-5
+TRIAD_TOL = {"float32": (1e-5, 1e-6), "float64": (1e-12, 1e-12)}
+STREAM_CHECK_N = 4096
+HBM_SCALE = 16384              # Table 1's n x 16384: 256-512 MB f64 arrays
+STREAM_ITERS = 20
+# Triad (Figs. 4/5): about 3/4 of the 50 MB L2 and twice it, in f64
+TRIAD_L2_N, TRIAD_MEM_N = 184 * 8192, 1 << 22
+TRIAD_CTAS = (1, 2, 4, 8, 16, 33, 66, 132)
+# K2 checks: both sweep sizes; 37 x 8192, no multiple of the full grid (264
+# CTAs of 1024 threads) nor of 33 or 132 CTAs; 5000, no multiple of any grid;
+# every cap of the sweep and the full grid
+TRIAD_CHECK_NS = (TRIAD_L2_N, TRIAD_MEM_N, 37 * 8192, 5000)
+TRIAD_CHECK_CTAS = (*TRIAD_CTAS, None)
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def time_ms(fn, iters, warmup=3):
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``iters`` calls after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+# ------------------------------------------------- K1, K2 and the calibration
+def compare_stream(what, got, want, rtol, atol):
+    """K1 or K2 against its plain version: (max |err|, the largest share of
+    the tolerance |err| <= atol + rtol|plain| used, elements that are not
+    bit-identical).  Fails on a shape or dtype mismatch, on non-finite
+    output, or where the tolerance is exceeded."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: kernel {tuple(got.shape)} {got.dtype}, plain "
+             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    err = diff.max().item()
+    used = (diff / (atol + rtol * w.abs())).max().item() if atol else (
+        0.0 if err == 0 else float("inf"))
+    if used > 1 or not torch.isfinite(g).all():
+        fail(f"{what} disagrees with its plain version: max|err| {err:.3e}")
+    return err, used, int((got != want).sum().item())
+
+
+def check_stream(dev) -> dict:
+    """K1 and K2 against their plain versions on the card (phase 3f).
+
+    K1: all 28 Table-1 expressions in their dtypes, inputs distributed as
+    the reference's (``calibrate._kernel_inputs``), at n = 4096 (the
+    reference test's size) and at the accuracy table's n (Table 1's n x
+    1024); ``add`` also at ``fit_h100``'s sizes (one block, N_L2, N_HBM);
+    then the fit entries ``poly16`` (f64, f32) at N_L2 and ``fill`` at
+    N_HBM, as ``fit_h100`` runs them.  (The HBM-resident table's n is held
+    in :func:`time_stream`.)  K2: f32 and f64 at every cap in
+    TRIAD_CHECK_CTAS, at both sweep sizes and at n that are no multiple of
+    the grid.  Prints the elements that are not bit-identical.  Returns the
+    largest errors and shares of the tolerance."""
+    import torch
+
+    from repro_torch.configs.a64fx_kernelsuite import KERNELS as SUITE
+    from repro_torch.core import calibrate as cal
+    from repro_torch.kernels import stream
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fit_ns = {"add": (2048, cal.N_L2, cal.N_HBM)}    # fit_h100's add launches
+    k1_err = k1_used = 0.0
+    for k in SUITE:
+        line = []
+        for n in (STREAM_CHECK_N, k.n * cal.SIZE_SCALE,
+                  *fit_ns.get(k.name, ())):
+            x1, x2, y0 = cal._kernel_inputs(k, n, gen, dev)
+            got = stream.elementwise(k.name, x1, x2, y0)
+            torch.cuda.synchronize()
+            want = stream.elementwise_plain(k.name, x1, x2, y0)
+            err, used, differ = compare_stream(f"K1 {k.name} n={n}", got,
+                                               want, STREAM_TOL, STREAM_TOL)
+            k1_err, k1_used = max(k1_err, err), max(k1_used, used)
+            line.append(f"n={n}: max|err| {err:.3e}, {differ} of {n} not "
+                        f"bit-identical, {used:.1%} of the tolerance")
+            del x1, x2, y0, got, want
+        print(f"[check] K1 {k.name} ({k.ktype}): " + "; ".join(line))
+    # poly16: the kernel fuses each Horner step, the plain version rounds
+    # twice; fill is exact
+    for name, dtype, tol, n in (
+            ("poly16", torch.float64, STREAM_TOL, cal.N_L2),
+            ("poly16", torch.float32, POLY16_F32_TOL, cal.N_L2),
+            ("fill", torch.float64, 0.0, cal.N_HBM)):
+        x = (torch.randn(n, generator=gen, device=dev).abs() * 0.1
+             + 0.5).to(dtype)
+        got = stream.elementwise(name, x)
+        torch.cuda.synchronize()
+        err, used, differ = compare_stream(
+            f"K1 {name} {dtype} n={n}", got, stream.elementwise_plain(name, x),
+            tol, tol)
+        k1_err, k1_used = max(k1_err, err), max(k1_used, used)
+        print(f"[check] K1 {name} {dtype} n={n}: max|err| {err:.3e}, "
+              f"{differ} not bit-identical (tolerance {tol:g}) ok")
+
+    k2_err = k2_used = 0.0
+    for dtype, (rtol, atol) in TRIAD_TOL.items():
+        for n in TRIAD_CHECK_NS:
+            a = torch.randn(n, generator=gen, device=dev).to(getattr(torch, dtype))
+            b = torch.randn(n, generator=gen, device=dev).to(getattr(torch, dtype))
+            want = stream.stream_triad_plain(a, b, 3.0)
+            line = []
+            for ctas in TRIAD_CHECK_CTAS:
+                got = stream.stream_triad(a, b, 3.0, max_ctas=ctas)
+                torch.cuda.synchronize()
+                err, used, differ = compare_stream(
+                    f"K2 {dtype} n={n} max_ctas={ctas}", got, want, rtol,
+                    atol)
+                k2_err, k2_used = max(k2_err, err), max(k2_used, used)
+                line.append(f"{ctas}: {err:.1e}/{differ}")
+            print(f"[check] K2 {dtype} n={n} (rtol {rtol:g}, atol {atol:g}), "
+                  f"max_ctas: max|err|/elements not bit-identical: "
+                  + ", ".join(line) + " ok")
+    return {"k1_err": k1_err, "k1_used": k1_used, "k2_err": k2_err,
+            "k2_used": k2_used}
+
+
+def calibrate_h100(dev) -> dict:
+    """The paper's calibration loop on the card, the main path of this
+    slice: fit the H100 spec from K1 microbenchmarks, both Fig. 3 tables
+    (K1's launches counted: kernels x (1 + repeats) each), the O3 sweep,
+    and the Triad sweep over CTA caps (Figs. 4/5)."""
+    from repro_torch.core import calibrate as cal
+    from repro_torch.kernels import stream
+
+    stream.elementwise.launches = stream.stream_triad.launches = 0
+    t0 = time.perf_counter()
+    hw = cal.fit_h100(dev)
+    launches = {"stream_elementwise": stream.elementwise.launches,
+                "stream_triad": stream.stream_triad.launches}
+    fitted = {"op_startup_ns": hw.op_startup_ns,
+              "vpu_flops_f64": hw.vpu_flops["f64"],
+              "vpu_flops_f32": hw.vpu_flops["f32"],
+              "vmem_bw": hw.vmem_bw, "hbm_read_bw": hw.hbm_read_bw,
+              "hbm_write_bw": hw.hbm_write_bw,
+              "transcendental_factor": hw.transcendental_factor,
+              "dma_overlap": hw.dma_overlap,
+              **{f"factor_{op}": hw.opcode_factor[op]
+                 for op in (*cal._FACTOR_FIT.values(), "remainder")}}
+    print(f"[fit] H100 spec fitted on the card in "
+          f"{time.perf_counter() - t0:.2f} s ({launches['stream_elementwise']}"
+          f" K1 launches): " + ", ".join(f"{k} {v:.6g}"
+                                         for k, v in fitted.items()))
+    tables = {}
+    for scale in (cal.SIZE_SCALE, HBM_SCALE):
+        stream.elementwise.launches = 0
+        t0 = time.perf_counter()
+        table = cal.kernel_accuracy_table(hw, size_scale=scale,
+                                          keep_programs=True, device=dev)
+        got = stream.elementwise.launches
+        want = len(table.rows) * (1 + cal.REPEATS)
+        launches["stream_elementwise"] += got
+        print(f"[fig3] kernel accuracy table at size_scale {scale} "
+              f"({time.perf_counter() - t0:.2f} s; K1 launches {got}, want "
+              f"{want}):")
+        print(table.report())
+        if got != want:
+            fail(f"the table at size_scale {scale} launched K1 {got} times, "
+                 f"want {want}")
+        sweep = cal.sweep_o3(table, hw)
+        print(f"[o3] sweep_o3 over the size_scale {scale} table, top 8:")
+        print(sweep.report(8))
+        tables[scale] = {
+            "rows": [[r.name, r.measured_us, r.simulated_us,
+                      r.simulated_sched_us] for r in table.rows],
+            "mean_diff": table.mean_diff, "std_diff": table.std_diff,
+            "mean_abs_diff": table.mean_abs_diff,
+            "within_10pct": table.within_10pct,
+            "sched_mean_abs_diff": table.sched_mean_abs_diff,
+            "o3_best": sweep.results[0]}
+    triad = {}
+    stream.stream_triad.launches = 0
+    for label, n in (("l2", TRIAD_L2_N), ("mem", TRIAD_MEM_N)):
+        rows, fit = cal.triad_scaling(n, TRIAD_CTAS, device=dev)
+        print(f"[triad] {label}: n={n} f64, {3 * 8 * n / 1e6:.1f} MB working "
+              f"set; fit bw1 {fit['bw1'] / 1e9:.2f} GB/s, plateau "
+              f"{fit['plateau'] / 1e9:.2f} GB/s")
+        print(f"{'ctas':>8s}{'measured_GB/s':>15s}{'simulated_GB/s':>16s}"
+              f"{'diff%':>8s}")
+        for r in rows:
+            print(f"{r['ctas']:>8d}{r['measured_gbps']:>15.2f}"
+                  f"{r['simulated_gbps']:>16.2f}{r['diff_pct']:>8.1f}")
+        triad[label] = {"n": n, "fit": fit, "rows": [
+            [r["ctas"], r["measured_gbps"], r["simulated_gbps"]]
+            for r in rows]}
+    launches["stream_triad"] += stream.stream_triad.launches
+    want_k2 = 2 * len(TRIAD_CTAS) * (1 + cal.REPEATS)
+    print(f"[calibrate] launches on the calibration path: {launches} "
+          f"(K2 want {want_k2})")
+    if launches["stream_triad"] != want_k2 or not all(launches.values()):
+        fail(f"calibration launches {launches}")
+    return {"fitted": fitted, "tables": tables, "triad": triad,
+            "launches": launches}
+
+
+F64_FLOPS = {"DFMA": 2, "DADD": 1, "DMUL": 1}   # flops per SASS instruction
+
+
+def fewest_f64_flops(body: str) -> int:
+    """The fewest f64 flops on any path from a function's first instruction
+    to an EXIT in its SASS listing: DFMA counts 2, DADD and DMUL 1 (the
+    data sheet's 34 TFLOP/s counts an FMA as two).  Branches are followed
+    both ways where predicated, calls are stepped over (their body is not
+    counted), so this is a lower bound on what one call executes."""
+    import heapq
+    import re
+
+    instrs, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        instrs.append((addr, m.group(2).strip()))
+    index = {addr: i for i, (addr, _) in enumerate(instrs)}
+    end = len(instrs)
+    graph = []
+    for i, (_, text) in enumerate(instrs):
+        pred = re.match(r"@!?U?P\w+\s+", text)
+        op = text[pred.end():] if pred else text
+        opcode = op.split()[0] if op.split() else ""
+        base = opcode.split(".")[0]
+        succ = []
+        if base == "BRA":
+            tgt = re.search(r"\((\.L_x_\d+)\)|(0x[0-9a-f]+)", op)
+            if tgt:
+                addr = labels.get(tgt.group(1)) if tgt.group(1) \
+                    else int(tgt.group(2), 16)
+                if addr in index:
+                    succ.append(index[addr])
+            # a guard (@P0 BRA) or a predicate operand (BRA P1, ...) makes
+            # the branch conditional
+            conditional = pred or re.match(r"BRA\S*\s+!?U?P\w+\s*,", op)
+            if conditional and i + 1 < end:
+                succ.append(i + 1)
+        elif base in ("EXIT", "RET"):
+            succ.append(end)
+            if pred and i + 1 < end:
+                succ.append(i + 1)
+        elif i + 1 < end:
+            succ.append(i + 1)
+        graph.append((F64_FLOPS.get(base, 0), succ))
+    best = {0: graph[0][0]} if graph else {}
+    heap = [(best.get(0, 0), 0)]
+    while heap:
+        d, i = heapq.heappop(heap)
+        if i == end:
+            return d
+        if d > best.get(i, float("inf")):
+            continue
+        for j in graph[i][1]:
+            dj = d + (graph[j][0] if j < end else 0)
+            if dj < best.get(j, float("inf")):
+                best[j] = dj
+                heapq.heappush(heap, (dj, j))
+    raise ValueError("no path to EXIT in the SASS listing")
+
+
+def sass_f64_flops(lib_path) -> dict:
+    """f64 flops an element of each Table-1 expression, counted in the SASS
+    of its ``ops_probe`` instance (``cuobjdump -sass``): the same
+    ``apply<E>`` as K1's loop body, one element, compiled alone.  Returns
+    name -> (the fewest flops on any path (:func:`fewest_f64_flops`), the
+    flops of every instruction in the listing).  The listing is written
+    beside the library, with the suffix ``.sass``."""
+    import re
+    import shutil
+
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    tool = next((c for c in cands if c and Path(c).exists()), None)
+    if tool is None:
+        fail("cuobjdump not found: the K1 op bound needs the kernel's SASS")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    Path(lib_path).with_suffix(".sass").write_text(sass)
+    from repro_torch.kernels import stream
+    names = list(stream.EXPRS)
+    flops = {}
+    for chunk in sass.split("Function : ")[1:]:
+        head, _, body = chunk.partition("\n")
+        m = re.search(r"ops_probeILi(\d+)E", head)
+        if m:
+            every = sum(F64_FLOPS[op] * len(re.findall(rf"\b{op}\b", body))
+                        for op in F64_FLOPS)
+            flops[names[int(m.group(1))]] = (fewest_f64_flops(body), every)
+    if set(flops) != set(names):
+        fail(f"no ops_probe SASS for {sorted(set(names) - set(flops))}")
+    return flops
+
+
+def time_stream(dev, lib_path) -> dict:
+    """K1 at the HBM-resident scale (Table 1's n x HBM_SCALE), each of the 28
+    expressions beside its plain version, one PyTorch call where one
+    computes the function, and its bound; K2 at 2x L2 likewise.  Each
+    kernel's output at these shapes is held against its plain version's
+    (:func:`compare_stream`); returns the largest errors and shares of the
+    tolerance beside the rows."""
+    import torch
+
+    from repro_torch.configs.a64fx_kernelsuite import KERNELS as SUITE
+    from repro_torch.core import calibrate as cal
+    from repro_torch.kernels import stream
+
+    c0 = stream.C0
+    library = {  # one PyTorch call computing the same function, or None
+        "add": lambda a, b, y: torch.add(a, b),
+        "sub": lambda a, b, y: torch.sub(a, b),
+        "mul": lambda a, b, y: torch.mul(a, b),
+        "fma": lambda a, b, y: torch.add(y, a, alpha=c0),
+        "div": lambda a, b, y: torch.div(a, b),
+        "rev": lambda a, b, y: torch.reciprocal(a),
+        "sqrt": lambda a, b, y: torch.sqrt(a),
+        "f2d": lambda a, b, y: a.to(torch.float64),
+        "i2d": lambda a, b, y: a.to(torch.float64),
+        "d2f": lambda a, b, y: a.to(torch.float32),
+        "d2i": lambda a, b, y: a.to(torch.int32),
+        "aint": lambda a, b, y: torch.trunc(a),
+        "nint": None,                 # round, then a cast: two calls
+        "anint": lambda a, b, y: torch.round(a),
+        "abs": lambda a, b, y: torch.abs(a),
+        "max": lambda a, b, y: torch.maximum(a, b),
+        "min": lambda a, b, y: torch.minimum(a, b),
+        "mod": None, "sign": None,
+        "atan": lambda a, b, y: torch.atan(a),
+        "atan2": lambda a, b, y: torch.atan2(a, b),
+        "cos": lambda a, b, y: torch.cos(a),
+        "sin": lambda a, b, y: torch.sin(a),
+        "exp": lambda a, b, y: torch.exp(a),
+        "exp10": None,
+        "log": lambda a, b, y: torch.log(a),
+        "log10": lambda a, b, y: torch.log10(a),
+        "pwr": None,
+    }
+    f64_flops = sass_f64_flops(lib_path)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    print(f"[time] K1 at Table 1's n x {HBM_SCALE} (HBM-resident), us: "
+          f"{'kernel':>9s}{'plain':>10s}{'torch':>10s}{'bound':>9s} by"
+          f"      bytes/elem  f64 flops/elem (SASS: fewest path, all)"
+          f"  max|err| not-bit-identical")
+    k1_err = k1_used = 0.0
+    for k in SUITE:
+        n = k.n * HBM_SCALE
+        x1, x2, y0 = cal._kernel_inputs(k, n, gen, dev)
+        args = (k.name, x1, x2, y0)
+        got = stream.elementwise(*args)
+        torch.cuda.synchronize()
+        err, used, differ = compare_stream(
+            f"K1 {k.name} n={n}", got, stream.elementwise_plain(*args),
+            STREAM_TOL, STREAM_TOL)
+        k1_err, k1_used = max(k1_err, err), max(k1_used, used)
+        del got
+        k_ms = time_ms(lambda: stream.elementwise(*args), STREAM_ITERS)
+        p_ms = time_ms(lambda: stream.elementwise_plain(*args), STREAM_ITERS)
+        lib = library[k.name]
+        l_ms = (time_ms(lambda: lib(x1, x2, y0), STREAM_ITERS)
+                if lib is not None else None)
+        nbytes = cal.kernel_program(k.name, n).ops[0].bytes_accessed
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        fewest, every = f64_flops[k.name]
+        t_ops = fewest * n / PEAK_F64_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        by = "operations" if t_ops > t_bytes else "bytes"
+        rows.append({"name": k.name, "n": n, "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "bytes": nbytes,
+                     "f64_flops_per_element": [fewest, every],
+                     "max_abs_err": err, "not_bit_identical": differ})
+        lib_txt = f"{l_ms * 1e3:10.1f}" if l_ms is not None else "      none"
+        print(f"[time] K1 {k.name:<6s} n={n:>9d}: {k_ms * 1e3:9.1f}"
+              f"{p_ms * 1e3:10.1f}{lib_txt}{bound_ms * 1e3:9.1f} {by:<10s}"
+              f"{nbytes / n:6.0f}{fewest:8d}{every:6d}  {err:.3e} {differ}")
+        del x1, x2, y0
+    n = TRIAD_MEM_N
+    a = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    b = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    k2_err, k2_used, k2_differ = compare_stream(
+        f"K2 float64 n={n}", stream.stream_triad(a, b, 3.0),
+        stream.stream_triad_plain(a, b, 3.0), *TRIAD_TOL["float64"])
+    k2 = {"ms": time_ms(lambda: stream.stream_triad(a, b, 3.0), STREAM_ITERS),
+          "plain_ms": time_ms(lambda: stream.stream_triad_plain(a, b, 3.0),
+                              STREAM_ITERS),
+          "library_ms": time_ms(lambda: torch.add(a, b, alpha=3.0),
+                                STREAM_ITERS)}
+    t_bytes, t_ops = 3 * 8 * n / HBM_BYTES_PER_S, 2 * n / PEAK_F64_FLOPS
+    k2.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+              bound_by="operations" if t_ops > t_bytes else "bytes",
+              shape=f"n={n} f64 (2x L2), grid filling the card")
+    print(f"[time] K2 n={n} f64: kernel {k2['ms'] * 1e3:.1f} us, plain "
+          f"{k2['plain_ms'] * 1e3:.1f} us, torch.add(a, b, alpha=3) "
+          f"{k2['library_ms'] * 1e3:.1f} us, bound {k2['bound_ms'] * 1e3:.1f}"
+          f" us ({3 * 8 * n / 1e6:.1f} MB over {HBM_BYTES_PER_S / 1e12:g} "
+          f"TB/s); kernel at {3 * 8 * n / k2['ms'] / 1e6:.0f} GB/s; vs plain "
+          f"max|err| {k2_err:.3e}, {k2_differ} not bit-identical")
+    return {"k1": rows, "k2": k2, "k1_err": k1_err, "k1_used": k1_used,
+            "k2_err": k2_err, "k2_used": k2_used}
 
 
 def main() -> int:
@@ -188,8 +626,8 @@ def main() -> int:
 
     # 2. the build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = list(pool.map(_build.load, KERNELS))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = list(pool.map(_build.load, SOURCES))
     print(f"[build] {len(builds)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (compiled side by side)")
     for built in builds:
@@ -410,6 +848,9 @@ def main() -> int:
             if used > 1:
                 fail("the gradient of ops.ssd_scan disagrees with ssd_ref's")
 
+    # 3f. K1 (28 expressions) and K2 (CTA caps) vs plain ------------------
+    stream_checks = check_stream(dev)
+
     def reset_launches():
         fa.flash_attention_bhsd.launches = ssd.ssd_chunk.launches = 0
         ssd.ssd_chunk_bwd.launches = 0
@@ -558,19 +999,6 @@ def main() -> int:
               f"ms/token on the host clock (device idle "
               f"{trace['decode_device_idle_share']:.1%})")
         return trace
-
-    def time_ms(fn, iters, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / iters
 
     # 4. full-width serving of chatglm3-6b, K3 in every layer ---------------
     serving, model, params, engine, prompts = serve_full(
@@ -923,12 +1351,22 @@ def main() -> int:
           f"needed work, {k5_bound_ms / k5_ms:.1%} of the bound; no single "
           f"PyTorch call computes this function")
 
+    # 15.-17. the calibration loop: fit, Fig. 3 tables, O3 sweep, Triad ----
+    del x, dt, A, Bm, Cm, args, dy, dstates, dgamma
+    gc.collect()
+    torch.cuda.empty_cache()
+    calibration = calibrate_h100(dev)
+    # 18. K1 and K2 timing beside their bounds, plain versions, torch calls
+    stream_times = time_stream(dev, next(b.path for b in builds
+                                         if b.name == "stream"))
+
     if failures:
         fail("; ".join(failures))
     for record in servings:
         print(json.dumps({"serving": record}))
     for record in trainings:
         print(json.dumps({"training": record}))
+    print(json.dumps({"calibration": calibration}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in servings + trainings}
                for k in KERNELS}
     print(json.dumps({"kernels": [{
@@ -973,7 +1411,43 @@ def main() -> int:
         "bound_by": "operations" if k5_ops_s >= k5_bytes_s else "bytes",
         "library_ms": None,
         "shape": f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C "
-                 f"broadcast"}]}))
+                 f"broadcast"}, {
+        "name": "stream_elementwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream.cu",
+        "replaces": "src/repro/kernels/stream.py:74",
+        "launches": calibration["launches"]["stream_elementwise"],
+        "launches_by_path": {"calibration": calibration["launches"][
+            "stream_elementwise"]},
+        "max_abs_err": max(stream_checks["k1_err"], stream_times["k1_err"]),
+        "tolerance": f"|err| <= {STREAM_TOL} + {STREAM_TOL}|plain| (poly16 "
+                     f"in f32: {POLY16_F32_TOL} + {POLY16_F32_TOL}|plain|; "
+                     f"fill: exact)",
+        "share_of_tolerance": max(stream_checks["k1_used"],
+                                  stream_times["k1_used"]),
+        "ms": sum(r["ms"] for r in stream_times["k1"]),
+        "plain_ms": sum(r["plain_ms"] for r in stream_times["k1"]),
+        "bound_ms": sum(r["bound_ms"] for r in stream_times["k1"]),
+        "bound_by": ("operations" if sum(
+            r["bound_ms"] for r in stream_times["k1"]
+            if r["bound_by"] == "operations") > 0.5 * sum(
+            r["bound_ms"] for r in stream_times["k1"]) else "bytes"),
+        "library_ms": None,
+        "shape": f"the 28 Table-1 expressions, one launch each (times "
+                 f"summed), n = Table 1's n x {HBM_SCALE}; no one PyTorch "
+                 f"call computes the suite, see by_expression",
+        "by_expression": stream_times["k1"]}, {
+        "name": "stream_triad", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream.cu",
+        "replaces": "src/repro/kernels/stream.py:104",
+        "launches": calibration["launches"]["stream_triad"],
+        "launches_by_path": {"calibration": calibration["launches"][
+            "stream_triad"]},
+        "max_abs_err": max(stream_checks["k2_err"], stream_times["k2_err"]),
+        "tolerance": "f32 |err| <= 1e-6 + 1e-5|plain|, f64 1e-12 + "
+                     "1e-12|plain|",
+        "share_of_tolerance": max(stream_checks["k2_used"],
+                                  stream_times["k2_used"]),
+        **stream_times["k2"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,0 +1,9 @@
+"""The simulator core, ported: a copy of ``repro.core`` without JAX.
+
+HLO parsing (``hlo``), the unified cost pipeline (``cost``, ``memory``),
+the occupancy and O3 engines (``engine``, ``schedule``/``compiled``),
+hardware parameter files (``hwspec``, with the ``H100`` test chip),
+calibration on the card (``calibrate``), and reporting (``roofline``,
+``pa``, ``simulate``).  The node engine, sampling, the model zoo, DSE and
+the cluster and serving simulators are still to port (ROADMAP queue 1).
+"""

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures: name -> (restype, argtypes).
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention_fwd": (
@@ -49,6 +49,13 @@ SIGNATURES = {
         "repro_ssd_chunk_bwd": (
             ctypes.c_int,
             [_P] * 14 + [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong), _P]),
+        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "stream": {
+        "repro_stream_elementwise": (
+            ctypes.c_int, [_I, _I, _P, _P, _P, _P, _L, _I, _P]),
+        "repro_stream_triad": (
+            ctypes.c_int, [_I, _P, _P, ctypes.c_double, _P, _L, _I, _P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
 }

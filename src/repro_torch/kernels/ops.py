@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from . import flash_attention as _fa
 from . import ssd_scan as _ssd
+from . import stream as _stream
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,3 +86,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     y = (y_diag.float() + y_off).reshape(B, Lp, H, P)[:, :L]
     return y.to(x.dtype), s.transpose(-1, -2).to(x.dtype)
+
+
+
+# K1 and K2, dispatched by device (see kernels/stream.py)
+elementwise = _stream.elementwise
+stream_triad = _stream.stream_triad

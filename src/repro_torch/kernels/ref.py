@@ -6,6 +6,11 @@ from typing import Optional
 
 import torch
 
+# K1's and K2's plain versions are the references of the Table-1
+# expressions and of STREAM Triad: one body each, in stream.py.
+from .stream import elementwise_plain as elementwise_ref  # noqa: F401
+from .stream import stream_triad_plain as stream_triad_ref  # noqa: F401
+
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
@@ -48,3 +53,4 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(torch.einsum("bhpn,bhn->bhp", state, Cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(xf.shape)
     return y.to(x.dtype), state.to(x.dtype)
+

@@ -23,6 +23,10 @@ terms cancel, so the f32 rounding of the terms lands at the scale of the
 cell's largest value.
 Gradients of ``ops.ssd_scan`` through K4 + K5 are held against autograd
 through ``ssd_ref`` at 2e-3, the reference's tolerance for the scan.
+The Table-1 kernel K1 is held to its plain version at the reference's 1e-12
+relative and absolute for all 28 expressions, poly16 at 1e-12 in f64 and
+1e-5 in f32 (one FMA a Horner step against a product and a sum); STREAM
+Triad K2 at rtol 1e-5, atol 1e-6 in f32 and 1e-12 in f64, at every CTA cap.
 """
 import numpy as np
 import pytest
@@ -32,6 +36,7 @@ from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import stream
 from repro_torch.models.lm import build_model
 from repro_torch.serve.engine import ServeEngine
 
@@ -338,3 +343,71 @@ def test_flash_kernel_refuses_to_drop_a_gradient(cuda_device):
         fa.flash_attention_bhsd(q, q, q, causal=True)
     with torch.no_grad():
         fa.flash_attention_bhsd(q, q, q, causal=True)
+
+
+def _stream_inputs(device, name, n, seed):
+    """x1, x2, y0 on the card, distributed as the reference's kernel test."""
+    fn, n_in, din, dout = stream.EXPRS[name]
+    rng = np.random.default_rng(seed)
+    if din == "i4":
+        x1 = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32))
+    else:
+        x1 = torch.from_numpy(np.abs(rng.standard_normal(n)) + 0.5).to(
+            stream.DTYPES[din])
+    x2 = torch.from_numpy(np.abs(rng.standard_normal(n)) + 0.5).to(
+        stream.DTYPES["f8" if din == "i4" else din])
+    y0 = torch.zeros(n, dtype=stream.DTYPES[dout])
+    return [t.to(device) for t in (x1, x2, y0)]
+
+
+@pytest.mark.parametrize("n", [4096, 3 * 2**20])
+@pytest.mark.parametrize("name", list(stream.EXPRS))
+def test_elementwise_kernel_matches_plain(cuda_device, name, n):
+    args = _stream_inputs(cuda_device, name, n, seed=n + len(name))
+    before = stream.elementwise.launches
+    got = stream.elementwise(name, *args)
+    torch.cuda.synchronize()
+    assert stream.elementwise.launches == before + 1
+    want = stream.elementwise_plain(name, *args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.double(), want.double(), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_fit_entries_match_plain(cuda_device, dtype, tol):
+    x = (torch.rand(2**20, device=cuda_device, dtype=torch.float64) * 0.1
+         + 0.5).to(dtype)
+    torch.testing.assert_close(stream.elementwise("poly16", x),
+                               stream.elementwise_plain("poly16", x),
+                               rtol=tol, atol=tol)
+    z = stream.elementwise("fill", x)
+    assert z.dtype == dtype and not z.any()
+
+
+@pytest.mark.parametrize("max_ctas", [1, 2, 4, 8, 16, 33, 66, 132, None])
+@pytest.mark.parametrize("n", [184 * 8192, 1 << 22, 37 * 8192, 5000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 1e-6)),
+                                       (torch.float64, (1e-12, 1e-12))])
+def test_stream_triad_kernel_matches_plain(cuda_device, dtype, tol, n,
+                                           max_ctas):
+    rng = np.random.default_rng(n)
+    a, b = (torch.from_numpy(rng.standard_normal(n)).to(cuda_device, dtype)
+            for _ in range(2))
+    got = stream.stream_triad(a, b, 3.0, max_ctas=max_ctas)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, stream.stream_triad_plain(a, b, 3.0),
+                               rtol=tol[0], atol=tol[1])
+
+
+def test_stream_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.ones(4096, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        stream.elementwise("add", x.float(), x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        stream.elementwise("add", x[::2].repeat(2)[::2], x[:2048])
+    with pytest.raises(ValueError, match="contiguous"):
+        stream.stream_triad(x.view(64, 64), x.view(64, 64))
+    with pytest.raises(TypeError):
+        stream.stream_triad(x.int(), x.int())

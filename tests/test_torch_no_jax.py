@@ -29,13 +29,19 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                           env={"PYTHONPATH": str(SRC), "PATH": ""})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    # configs, models, kernels, serve, launch, and from slice 3 data, train
-    assert n_modules >= 42
+    # configs, models, kernels, serve, launch, from slice 3 data, train, and
+    # from slice 4 the simulator core and the kernel-suite config
+    assert n_modules >= 56
     names = set(proc.stdout.split()[2:])
     assert {"repro_torch.launch.train", "repro_torch.data.synthetic",
             "repro_torch.train.trainer", "repro_torch.train.optimizer",
             "repro_torch.train.schedule", "repro_torch.train.checkpoint",
             "repro_torch.train.fault"} <= names
+    assert {f"repro_torch.core.{m}" for m in (
+        "hlo", "memory", "hwspec", "cost", "engine", "roofline", "stats",
+        "compiled", "schedule", "pa", "simulate", "calibrate")} <= names
+    assert {"repro_torch.kernels.stream",
+            "repro_torch.configs.a64fx_kernelsuite"} <= names
 
 
 @pytest.fixture
@@ -126,7 +132,7 @@ def test_ssd_scan_never_falls_back_to_the_cpu():
                      torch.zeros(2, device="meta"), bc, bc, chunk=16)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan", "stream"])
 def test_ctypes_signatures_match_the_sources(name):
     """Each C entry point declared for ctypes exists in its CUDA source with
     as many parameters as argtypes: a mismatch would pass pointers as ints
@@ -157,3 +163,24 @@ def test_train_entry_points_raise_without_card(no_card, arch, tmp_path):
         train.build_training(model, run)
     assert train.main(argv + ["--device", "cpu", "--ckpt-dir",
                               str(tmp_path)]) == 0      # explicit CPU runs
+
+
+def test_stream_on_cpu_never_touches_the_kernel_library(monkeypatch):
+    """CPU tensors take K1's and K2's plain versions: the CUDA library is
+    never built or loaded, and no launch is counted."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import stream
+
+    def refuse(name):
+        raise AssertionError(f"kernel library {name} loaded for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = (stream.elementwise.launches, stream.stream_triad.launches)
+    x = torch.rand(4096, dtype=torch.float64) + 0.5
+    for name in stream.EXPRS:
+        din = stream.DTYPES[stream.EXPRS[name][2]]
+        ops.elementwise(name, x.to(din), x)
+    ops.stream_triad(x, x, max_ctas=1)
+    assert (stream.elementwise.launches,
+            stream.stream_triad.launches) == before
+

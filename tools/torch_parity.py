@@ -1,6 +1,6 @@
 """Max errors of the PyTorch port against the JAX reference, on the CPU.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/torch_parity.py [group ...]
 
 Recomputes, at the sizes of the ``tests/test_torch_*.py`` parity tests, the
 largest error each of them allows for, and prints a markdown table (test,
@@ -629,11 +629,129 @@ def train_loop_rows():
              gap)]
 
 
-def main() -> int:
+GOLDEN_HLO = """
+HloModule chain, num_partitions=1
+
+ENTRY %main (p0: f32[4096,4096]) -> f32[4096,4096] {
+  %p0 = f32[4096,4096] parameter(0)
+  %dot = f32[4096,4096] dot(%p0, %p0), lhs_contracting_dims={1}
+  %e = f32[4096,4096] exponential(%dot)
+  %dot2 = f32[4096,4096] dot(%e, %e), lhs_contracting_dims={1}
+  ROOT %neg = f32[4096,4096] negate(%dot2)
+}
+"""
+
+
+def _k1_inputs(name, n, seed):
+    from repro.kernels.stream import EXPRS
+    fn, n_in, din, dout = EXPRS[name]
+    dt = {"f8": np.float64, "f4": np.float32, "i4": np.int32}
+    rng = np.random.default_rng(seed)
+    x1 = (rng.integers(-1000, 1000, n).astype(np.int32) if din == "i4" else
+          (np.abs(rng.standard_normal(n)) + 0.5).astype(dt[din]))
+    x2 = (np.abs(rng.standard_normal(n)) + 0.5).astype(
+        dt["f8" if din == "i4" else din])
+    return x1, x2, np.zeros(n, dt[dout])
+
+
+def _k1_hlo(name, n):
+    from repro.kernels.stream import EXPRS
+    with jax.enable_x64(True):
+        x1, x2, y0 = (jnp.asarray(a) for a in _k1_inputs(name, n, 0))
+        f = jax.jit(lambda a, b, y: jref.elementwise_ref(name, a, b, y))
+        return f.lower(x1, x2, y0).compile().as_text()
+
+
+def slice4_rows():
+    """Slice 4: the simulator core, K1/K2's plain versions, kernel_program."""
+    import dataclasses
+    import json
+
+    from repro.core import hlo as rh
+    from repro.core import hwspec as rhw
+    from repro.core import simulate as rsim
+    from repro.kernels import stream as jstream
+    from repro_torch.core import calibrate as tcal
+    from repro_torch.core import hlo as th
+    from repro_torch.core import hwspec as thw
+    from repro_torch.core import simulate as tsim
+    from repro_torch.kernels import stream as tstream
+
+    def report(mod, text, hw):
+        rep = mod.simulate(text, hw=hw, compute_dtype="f32", engine="both")
+        d = json.loads(rep.to_json())
+        return rep.pa, {k: v for k, v in d.items()
+                        if k not in ("xla_cost_analysis", "memory_analysis")}
+
+    texts = [GOLDEN_HLO] + [_k1_hlo(k, 4096) for k in jstream.EXPRS]
+    differ = 0
+    for text in texts:
+        for spec in ("tpu_v5e", "a64fx_core", "cpu_host"):
+            differ += dataclasses.asdict(th.parse_program(text)) \
+                != dataclasses.asdict(rh.parse_program(text))
+            differ += report(tsim, text, thw.SPECS[spec]) \
+                != report(rsim, text, rhw.SPECS[spec])
+    k1, k2 = 0.0, {}
+    for name in jstream.EXPRS:
+        for n, block in ((4096, 512), (3 * 4096, 4096)):
+            x1, x2, y0 = _k1_inputs(name, n, n + len(name))
+            with jax.enable_x64(True):
+                want = np.asarray(jstream.elementwise(
+                    name, *(jnp.asarray(a) for a in (x1, x2, y0)),
+                    block=block, interpret=True), np.float64)
+            got = tstream.elementwise_plain(
+                name, *(torch.from_numpy(a) for a in (x1, x2, y0)))
+            k1 = max(k1, float((np.abs(got.double().numpy() - want)
+                                / (1 + np.abs(want))).max()))
+    for dtype in (np.float32, np.float64):
+        rng = np.random.default_rng(0)
+        a, b = (rng.standard_normal(1 << 14).astype(dtype) for _ in range(2))
+        with jax.enable_x64(True):
+            want = np.asarray(jstream.stream_triad(
+                jnp.asarray(a), jnp.asarray(b), 3.0, block=4096,
+                interpret=True))
+        got = tstream.stream_triad_plain(torch.from_numpy(a),
+                                         torch.from_numpy(b)).numpy()
+        k2[dtype] = float(np.abs(got - want).max())
+    mism = 0
+    for name in jstream.EXPRS:
+        if name in ("mod", "aint", "sign"):     # test_torch_kernel_program.py
+            continue
+        ref = rh.parse_program(_k1_hlo(name, 4096))
+        prog = tcal.kernel_program(name, 4096)
+        vpu = {k: v for k, v in ref.ops[0].vpu_by_opcode.items()
+               if k != "broadcast"}
+        mism += (prog.bytes_accessed != ref.bytes_accessed
+                 or prog.ops[0].trans_by_opcode != ref.ops[0].trans_by_opcode
+                 or prog.ops[0].vpu_by_opcode != vpu)
+    return [
+        (f"core: Program, SimReport.to_json() (both engines) and PA text "
+         f"under 3 "
+         f"specs, {len(texts)} HLO texts (golden chain + 28 Table-1 "
+         f"kernels); fields that differ", "exact", differ),
+        ("K1 elementwise_plain vs Pallas interpret, 28 expressions x 2 sizes",
+         "1e-12 mixed", k1),
+        ("K2 stream_triad_plain vs Pallas interpret, f32 / f64 (absolute)",
+         "1e-5 rel + 1e-6 / 1e-12", max(k2.values())),
+        ("kernel_program vs reference parse, 25 kernels outside the three "
+         "named exceptions (bytes, trans, vpu without broadcast); kernels "
+         "that differ", "exact", mism)]
+
+
+GROUPS = {"flash": flash_rows, "layers": layer_rows,
+          "attention": attention_rows, "lm_serve": lm_and_serve_rows,
+          "ssd": ssd_rows, "mamba": mamba_rows, "ssm_lm": ssm_lm_rows,
+          "ssd_bwd": ssd_bwd_rows, "train_parts": train_part_rows,
+          "train_step": train_step_rows, "train_loop": train_loop_rows,
+          "slice4": slice4_rows}
+
+
+def main(argv=None) -> int:
+    """Print the table; ``argv`` names groups of rows (default: all)."""
+    import sys
+    names = (sys.argv[1:] if argv is None else argv) or list(GROUPS)
     torch.set_num_threads(1)
-    rows = (flash_rows() + layer_rows() + attention_rows() + lm_and_serve_rows()
-            + ssd_rows() + mamba_rows() + ssm_lm_rows() + ssd_bwd_rows()
-            + train_part_rows() + train_step_rows() + train_loop_rows())
+    rows = [row for name in names for row in GROUPS[name]()]
     print("| test | tolerance | max error seen |")
     print("| --- | --- | --- |")
     for name, tol, e in rows:
