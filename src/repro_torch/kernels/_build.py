@@ -36,6 +36,7 @@ SIGNATURES = {
             ctypes.c_int,
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              ctypes.POINTER(ctypes.c_longlong), _F, _I, _P]),
+        "repro_flash_attention_smem_bytes": (ctypes.c_int, [_I, _I]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "ssd_scan": {
@@ -53,7 +54,7 @@ SIGNATURES = {
     },
     "stream": {
         "repro_stream_elementwise": (
-            ctypes.c_int, [_I, _I, _P, _P, _P, _P, _L, _I, _P]),
+            ctypes.c_int, [_I, _I, _P, _P, _P, _P, _L, _P]),
         "repro_stream_triad": (
             ctypes.c_int, [_I, _P, _P, ctypes.c_double, _P, _L, _I, _P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),

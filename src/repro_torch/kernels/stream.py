@@ -8,8 +8,10 @@ here:
 * the CUDA kernels ``csrc/stream.cu`` (Hopper, built by ``_build``), launched
   for tensors on a CUDA device: K1 reads only the arrays its expression uses
   (x2 for the two-input expressions, y0 for ``fma``), where the Pallas kernel
-  DMAs all three; K2 takes ``max_ctas``, a cap on the number of CTAs, for
-  the Figs. 4/5 sweep over SMs;
+  DMAs all three, four elements a thread in 16-byte vectors when every
+  array is 16-byte aligned (the kernel picks its path and grid itself);
+  K2 takes ``max_ctas``, a cap on the number of CTAs, for the Figs. 4/5
+  sweep over SMs;
 * ``elementwise_plain`` and ``stream_triad_plain``, the same functions in
   plain PyTorch, used for tensors on the CPU and as the kernels' yardstick on
   the card.
@@ -96,7 +98,6 @@ FIT_EXPRS: dict[str, Callable] = {
 # Expression ids of csrc/stream.cu: EXPRS' order, then FIT_EXPRS'.
 _EXPR_IDS = {name: i for i, name in enumerate([*EXPRS, *FIT_EXPRS])}
 _FIT_DTYPE_CODES = {torch.float64: 0, torch.float32: 1}
-_THREADS = 256            # K1's block; csrc/stream.cu's __launch_bounds__
 TRIAD_THREADS = 1024      # K2's CTA
 
 
@@ -165,6 +166,8 @@ def elementwise(name: str, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
     ``x2`` defaults to ``x1`` and ``y0`` to zeros, as in the reference;
     ``n % min(block, n) == 0`` is asserted as there, for parity of errors
     (the CUDA kernel strides over the whole array whatever ``block`` is).
+    Contiguous views at any element offset are taken: a misaligned one runs
+    the kernel's scalar path.
     """
     if name not in EXPRS and name not in FIT_EXPRS:
         raise KeyError(f"unknown expression {name!r}")
@@ -193,12 +196,11 @@ def elementwise(name: str, x1: torch.Tensor, x2: Optional[torch.Tensor] = None,
         y0 = torch.zeros(n, dtype=out_dtype, device=device)
     x2 = x1 if x2 is None else x2
     y = torch.empty(n, dtype=out_dtype, device=device)
-    grid = min(-(-n // _THREADS), _sm_count(device) * (2048 // _THREADS))
     lib = _build.load("stream").lib
     err = lib.repro_stream_elementwise(
         _EXPR_IDS[name], dcode, x1.data_ptr() if r1 else None,
         x2.data_ptr() if r2 else None, y0.data_ptr() if r3 else None,
-        y.data_ptr(), n, grid, torch.cuda.current_stream(device).cuda_stream)
+        y.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, f"elementwise {name}")
     elementwise.launches += 1
     return y

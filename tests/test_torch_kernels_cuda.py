@@ -7,7 +7,9 @@ imports no JAX, so on the card it runs as
         tests/test_torch_kernels_cuda.py
 
 Flash attention (K3) is held at the reference's kernel-test tolerances: 2e-5
-in f32 (the kernel runs f32 in full f32, never TF32), 2e-2 in bf16.  The SSD
+in f32 (the kernel runs f32 in full f32, never TF32), 2e-2 in bf16, the
+bf16 kernel also at its tile edges (127-129 and 2047 rows and keys), for
+every head dim, on (B, S, H, D) views.  The SSD
 chunk kernel (K4) is held to its plain version at 1e-3 on its f32 outputs
 (both compute in f32, but the kernel's cumsum is a warp scan and its dot
 products sum in another order; at Q = 256 ``cs`` reaches ~-230 over a chunk,
@@ -24,8 +26,10 @@ cell's largest value.
 Gradients of ``ops.ssd_scan`` through K4 + K5 are held against autograd
 through ``ssd_ref`` at 2e-3, the reference's tolerance for the scan.
 The Table-1 kernel K1 is held to its plain version at the reference's 1e-12
-relative and absolute for all 28 expressions, poly16 at 1e-12 in f64 and
-1e-5 in f32 (one FMA a Horner step against a product and a sum); STREAM
+relative and absolute for all 28 expressions, and bit for bit on its vector
+path (aligned) and its scalar path (one element off 16-byte alignment) at
+lengths with and without a ragged tail; poly16 at 1e-12 in f64 and 1e-5 in
+f32 (one FMA a Horner step against a product and a sum); STREAM
 Triad K2 at rtol 1e-5, atol 1e-6 in f32 and 1e-12 in f64, at every CTA cap.
 """
 import numpy as np
@@ -46,6 +50,13 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 GRID = [  # the reference's kernel-test grid, then head dims 256 and 128
     (128, 128, 4, 4, 64), (256, 256, 4, 1, 64), (128, 384, 8, 2, 32),
     (100, 200, 4, 2, 64), (300, 170, 8, 2, 256), (200, 333, 4, 2, 128)]
+# the bf16 kernel's tile edges (128 query rows a CTA, 64 a consumer
+# warpgroup; 128 keys a block, 64 at D = 256): Sq != Sk, causal aligned
+# top-left; G = 16 and G = 1; every head dim
+GRID += [(sq, sk, h, kvh, d) for d in (32, 64, 128, 256)
+         for sq, sk, h, kvh in ((127, 127, 16, 1), (128, 129, 4, 4),
+                                (129, 128, 16, 1), (2047, 2047, 2, 2),
+                                (127, 2047, 16, 1), (2047, 129, 16, 16))]
 
 
 @pytest.fixture
@@ -77,13 +88,18 @@ def test_flash_kernel_matches_plain(cuda_device, sq, sk, h, kvh, d, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_takes_strided_views(cuda_device, dtype):
+@pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("sq,sk,h,kvh", [(50, 70, 8, 2), (129, 300, 16, 1),
+                                         (300, 129, 4, 4)])
+def test_flash_kernel_takes_strided_views(cuda_device, sq, sk, h, kvh, d,
+                                          dtype):
     """(B,S,H,D) tensors transposed to (B,H,S,D) views go in without a copy
-    and the output comes back laid out (B,S,H,D)."""
+    (the bf16 kernel's tensor maps read them through their strides) and the
+    output comes back laid out (B,S,H,D)."""
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                .to(cuda_device, dtype)
-               for s in ((2, 50, 8, 64), (2, 70, 2, 64), (2, 70, 2, 64)))
+               for s in ((2, sq, h, d), (2, sk, kvh, d), (2, sk, kvh, d)))
     got = fa.flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True)
     assert got.transpose(1, 2).is_contiguous()
@@ -360,30 +376,39 @@ def _stream_inputs(device, name, n, seed):
     return [t.to(device) for t in (x1, x2, y0)]
 
 
-@pytest.mark.parametrize("n", [4096, 3 * 2**20])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [4096, 3 * 2**20, 1, 3, 4097, 2**20 + 5])
 @pytest.mark.parametrize("name", list(stream.EXPRS))
-def test_elementwise_kernel_matches_plain(cuda_device, name, n):
-    args = _stream_inputs(cuda_device, name, n, seed=n + len(name))
+def test_elementwise_kernel_matches_plain(cuda_device, name, n, offset):
+    """0 elements differ from the plain version: offset 0 takes the vector
+    path (and the scalar tail past the last whole tile), offset 1 (views
+    one element into their buffers, not 16-byte aligned) the scalar path."""
+    args = [t[offset:] for t in _stream_inputs(cuda_device, name, n + offset,
+                                               seed=n + len(name))]
     before = stream.elementwise.launches
-    got = stream.elementwise(name, *args)
+    got = stream.elementwise(name, *args, block=n)
     torch.cuda.synchronize()
     assert stream.elementwise.launches == before + 1
     want = stream.elementwise_plain(name, *args)
     assert got.dtype == want.dtype and got.shape == want.shape
-    torch.testing.assert_close(got.double(), want.double(), rtol=1e-12,
-                               atol=1e-12)
+    assert int((got != want).sum()) == 0
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [2**20, 1, 3, 4097, 2**20 + 5])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_fit_entries_match_plain(cuda_device, dtype, tol):
-    x = (torch.rand(2**20, device=cuda_device, dtype=torch.float64) * 0.1
-         + 0.5).to(dtype)
-    torch.testing.assert_close(stream.elementwise("poly16", x),
+def test_fit_entries_match_plain(cuda_device, dtype, tol, n, offset):
+    """fill is exact; poly16 runs each Horner step as one FMA where the
+    plain version rounds a product and a sum, so it is held at tol; both
+    paths, as above."""
+    x = (torch.rand(n + offset, device=cuda_device, dtype=torch.float64)
+         * 0.1 + 0.5).to(dtype)[offset:]
+    torch.testing.assert_close(stream.elementwise("poly16", x, block=n),
                                stream.elementwise_plain("poly16", x),
                                rtol=tol, atol=tol)
-    z = stream.elementwise("fill", x)
-    assert z.dtype == dtype and not z.any()
+    z = stream.elementwise("fill", x, block=n)
+    assert z.dtype == dtype and z.shape == x.shape and not z.any()
 
 
 @pytest.mark.parametrize("max_ctas", [1, 2, 4, 8, 16, 33, 66, 132, None])
