@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. the build: ``nvcc`` builds every kernel of the paths from ``src/`` (K1
    and K2 in ``stream.cu``, K3, K4 and K5), one compiler per source, all
    started together (seconds, ptxas register, shared-memory and spill
-   lines; K3's dynamic shared memory a CTA for each head dim);
+   lines; K3's dynamic shared memory a CTA for each head dim; K5's for
+   each instance, with the times it forms s = C.B^T and dM = dy.x^T per
+   tile pair);
 3. kernel vs plain: each kernel against its plain PyTorch version on the card:
    flash attention (K3) at the unit-test grid, its tile edges (Sq, Sk of
    127-129 and 2047, G = 16 and 1, every head dim) and the chatglm3-6b and
@@ -20,7 +22,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    and head-broadcast, then ``ops.ssd_scan`` with ``initial_state`` against
    the split-sequence identity; the SSD backward kernel (K5) against its
    plain version and both against the same math in f64, at the same grid
-   and the mamba2-1.3b and zamba2-1.2b training shapes; and the gradient
+   and the mamba2-1.3b and zamba2-1.2b training shapes, each run twice for
+   identical bits; and the gradient
    of ``ops.ssd_scan`` (K4 + K5) against autograd through the sequential
    ``ssd_ref``, with and without ``initial_state``; the Table-1 kernel (K1)
    on all 28 expressions at n = 4096 and at the accuracy table's n, at
@@ -51,9 +54,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    zamba2-1.2b through K4 (``kernel``) against plain PyTorch (``chunked``)
    with the same weights in f32, the kernel path in f32 and in bf16, and
    the same argmax;
-10. timing: K4 at mamba2-1.3b's 2048-token prefill shape (CUDA events)
-    beside its bound and its plain version (no single PyTorch call computes
-    this function);
+10. timing: K4 at mamba2-1.3b's 2048-token prefill shape on device time
+    (each call behind a device-side spin) beside its bound and its plain
+    version (no single PyTorch call computes this function);
 11. full-width training of mamba2-1.3b through ``launch.train.train_loop``
     (``RunConfig`` defaults: bf16 parameters and compute, f32 AdamW, remat
     full; ``ssd_impl="kernel"``): 5 steps of 4 x 2048 synthetic tokens; K4
@@ -68,8 +71,11 @@ Phases, in order; any failure exits non-zero and prints no result:
     1000-token sequence, the K4 + K5 path against ``ssd_impl="chunked"``
     with the same weights: the losses within 1e-4 relative, every gradient
     leaf within 1e-3 of its largest |g|;
-14. timing: K5 at mamba2-1.3b's training shape beside its bound and its
-    plain version (no single PyTorch call computes this function);
+14. timing: K5 at mamba2-1.3b's training shape on device time beside its
+    bound (the larger of its tensor-core and its byte bound; the bound with
+    its f32-operand products as f32 FMAs printed beside them), the host's
+    time to queue one call, and its plain version (no single PyTorch call
+    computes this function);
 15. the paper's calibration loop (``repro_torch.core.calibrate``): fit the
     H100 spec from K1 microbenchmarks and print every fitted scalar;
 16. the Fig. 3 accuracy tables, all 28 Table-1 kernels timed through K1
@@ -78,8 +84,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 17. the Figs. 4/5 Triad sweep: K2 at 1-132 CTAs, at ~3/4 of the L2 and at
     twice it, measured against the saturating-bandwidth model;
 18. timing: each K1 expression at the HBM-resident scale and K2 at twice
-    the L2, beside the plain version, one PyTorch call where one computes
-    the function, and the bound (bytes over 3.35 TB/s, f64 flops counted in
+    the L2 (on device time, each call behind a spin), beside the plain
+    version, one PyTorch call where one computes the function, and the
+    bound (bytes over 3.35 TB/s, f64 flops counted in
     the SASS over 34 TFLOP/s); each output at these shapes held against the
     plain version's, as in phase 3.
 
@@ -190,8 +197,10 @@ STREAM_CHECK_N = 4096
 K1_EDGE_NS = (1, 3, 4097, (1 << 20) + 5)   # K1's tails: no whole tile, ragged
 HBM_SCALE = 16384              # Table 1's n x 16384: 256-512 MB f64 arrays
 STREAM_ITERS = 20
+TRIAD_REPEATS = 50
 # Triad (Figs. 4/5): about 3/4 of the 50 MB L2 and twice it, in f64
 TRIAD_L2_N, TRIAD_MEM_N = 184 * 8192, 1 << 22
+TRIAD_SIZE_NS = (1 << 22, 1 << 24, 1 << 26)   # K2's fixed cost and rate
 TRIAD_CTAS = (1, 2, 4, 8, 16, 33, 66, 132)
 # K2 checks: both sweep sizes; 37 x 8192, no multiple of the full grid (264
 # CTAs of 1024 threads) nor of 33 or 132 CTAs; 5000, no multiple of any grid;
@@ -219,6 +228,18 @@ def time_ms(fn, iters, warmup=3):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, repeats):
+    """Median milliseconds of ``fn()`` on the card over ``repeats`` calls,
+    each queued behind a device-side spin longer than the host takes to
+    queue the call (``core/calibrate.py``'s ``_median_time``), so the events
+    around it time the card, not the wrapper's per-call host cost."""
+    import torch
+
+    from repro_torch.core import calibrate as cal
+    return cal._median_time(lambda _: fn(), (torch.empty(0, device="cuda"),),
+                            repeats) * 1e3
 
 
 # ------------------------------------------------- K1, K2 and the calibration
@@ -627,21 +648,52 @@ def time_stream(dev, lib_path) -> dict:
     k2_err, k2_used, k2_differ = compare_stream(
         f"K2 float64 n={n}", stream.stream_triad(a, b, 3.0),
         stream.stream_triad_plain(a, b, 3.0), *TRIAD_TOL["float64"])
-    k2 = {"ms": time_ms(lambda: stream.stream_triad(a, b, 3.0), STREAM_ITERS),
-          "plain_ms": time_ms(lambda: stream.stream_triad_plain(a, b, 3.0),
-                              STREAM_ITERS),
-          "library_ms": time_ms(lambda: torch.add(a, b, alpha=3.0),
-                                STREAM_ITERS)}
+    k2 = {"ms": device_ms(lambda: stream.stream_triad(a, b, 3.0),
+                          TRIAD_REPEATS),
+          "plain_ms": device_ms(lambda: stream.stream_triad_plain(a, b, 3.0),
+                                TRIAD_REPEATS),
+          "library_ms": device_ms(lambda: torch.add(a, b, alpha=3.0),
+                                  TRIAD_REPEATS),
+          "timing": "device time: the median of calls each behind a "
+                    "device-side spin"}
     t_bytes, t_ops = 3 * 8 * n / HBM_BYTES_PER_S, 2 * n / PEAK_F64_FLOPS
     k2.update(bound_ms=max(t_bytes, t_ops) * 1e3,
               bound_by="operations" if t_ops > t_bytes else "bytes",
               shape=f"n={n} f64 (2x L2), grid filling the card")
-    print(f"[time] K2 n={n} f64: kernel {k2['ms'] * 1e3:.1f} us, plain "
-          f"{k2['plain_ms'] * 1e3:.1f} us, torch.add(a, b, alpha=3) "
-          f"{k2['library_ms'] * 1e3:.1f} us, bound {k2['bound_ms'] * 1e3:.1f}"
+    print(f"[time] K2 n={n} f64 (device time, the median of {TRIAD_REPEATS} "
+          f"calls behind a spin): kernel {k2['ms'] * 1e3:.2f} us, plain "
+          f"{k2['plain_ms'] * 1e3:.2f} us, torch.add(a, b, alpha=3) "
+          f"{k2['library_ms'] * 1e3:.2f} us, bound {k2['bound_ms'] * 1e3:.2f}"
           f" us ({3 * 8 * n / 1e6:.1f} MB over {HBM_BYTES_PER_S / 1e12:g} "
           f"TB/s); kernel at {3 * 8 * n / k2['ms'] / 1e6:.0f} GB/s; vs plain "
           f"max|err| {k2_err:.3e}, {k2_differ} not bit-identical")
+    # K2 and torch.add at 4x and 16x that size: how much of the gap to the
+    # byte bound is a fixed cost of each launch (start, ramp, drain) and how
+    # much the rate that the card sustains
+    del a, b
+    k2["by_size"] = []
+    for n in TRIAD_SIZE_NS:
+        a = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        b = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        row = {"n": n,
+               "ms": device_ms(lambda: stream.stream_triad(a, b, 3.0),
+                               TRIAD_REPEATS),
+               "library_ms": device_ms(lambda: torch.add(a, b, alpha=3.0),
+                                       TRIAD_REPEATS),
+               "bound_ms": 3 * 8 * n / HBM_BYTES_PER_S * 1e3}
+        k2["by_size"].append(row)
+        print(f"[time] K2 n={n} f64 ({3 * 8 * n / 1e6:.1f} MB; device time "
+              f"behind a spin): kernel {row['ms'] * 1e3:.2f} us "
+              f"({row['bound_ms'] / row['ms']:.1%} of the byte bound), "
+              f"torch.add {row['library_ms'] * 1e3:.2f} us "
+              f"({row['bound_ms'] / row['library_ms']:.1%})")
+        del a, b
+    (n0, t0), (n1, t1) = ((r["n"], r["ms"]) for r in k2["by_size"][-2:])
+    rate = 3 * 8 * (n1 - n0) / ((t1 - t0) * 1e-3)
+    print(f"[time] K2: from the two largest sizes, {rate / 1e12:.3f} TB/s "
+          f"sustained ({rate / HBM_BYTES_PER_S:.1%} of "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s) and a fixed "
+          f"{(t1 - 3 * 8 * n1 / rate * 1e3) * 1e3:.2f} us a launch")
     return {"k1": rows, "k2": k2, "k1_err": k1_err, "k1_used": k1_used,
             "k2_err": k2_err, "k2_used": k2_used}
 
@@ -706,6 +758,21 @@ def main() -> int:
           + "; the bf16 kernel's ptxas register count is its launch bound "
           "(384 threads), then setmaxnreg gives the consumer warpgroups 240 "
           "and the producer 24")
+
+    bwd_lib = next(b.lib for b in builds if b.name == "ssd_scan_bwd")
+    for dtype, code in (("float32", 0), ("bfloat16", 1)):
+        for p_max in (64, 128):
+            for n_max in (64, 128, 256):
+                parts = bwd_lib.repro_ssd_chunk_bwd_parts(p_max, n_max)
+                print(f"[build] ssd_scan_bwd instance {dtype} P<={p_max} "
+                      f"N<={n_max}: dynamic shared memory, column / row CTA "
+                      f"{bwd_lib.repro_ssd_chunk_bwd_smem_bytes(code, p_max, n_max, 0)}"
+                      f" / {bwd_lib.repro_ssd_chunk_bwd_smem_bytes(code, p_max, n_max, 1)}"
+                      f" B; dB and dC in {parts} column part(s); per tile "
+                      f"pair and head, s = C.B^T formed 1x (the column CTA "
+                      f"of part 0), dM = dy.x^T {2 * parts}x (column and "
+                      f"row CTAs of every part); with B/C shared by the "
+                      f"heads s is formed for each head")
 
     # 3. kernel vs plain ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -850,7 +917,14 @@ def main() -> int:
         dstates = torch.randn((B, nc, H, N, P), generator=gen, device=dev)
         dgamma = torch.randn((B, nc, H), generator=gen, device=dev)
         got = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
+        again = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
         torch.cuda.synchronize()
+        same_bits = all(torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                           else torch.int32),
+                                    b.view(torch.int16 if b.element_size() == 2
+                                           else torch.int32))
+                        for a, b in zip(got, again))
+        del again
         want = ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma)
         exact = ssd.ssd_chunk_bwd_plain(*(t.double() for t in (
             *args, dy, dstates, dgamma)))
@@ -868,17 +942,19 @@ def main() -> int:
                                       ("plain-f64", w, e, 1)):
                 used[pair] = max(used[pair], ((a - b).abs() / bwd_allowed(
                     name, dtype, b, times)).max().item())
-        ok = max(used.values()) <= 1 and all(torch.isfinite(g).all()
-                                             for g in got)
+        ok = same_bits and max(used.values()) <= 1 and all(
+            torch.isfinite(g).all() for g in got)
         print(f"[check] K5 B={B} nc={nc} Q={Q} H={H} P={P} N={N} {dtype} "
               f"{'broadcast' if broadcast else 'contiguous'} B/C: max|err| "
               "against plain " + ", ".join(f"{k} {v:.3e}" for k, v in
                                            errs.items())
               + "; share of the tolerance " + ", ".join(
                   f"{k} {v:.1%}" for k, v in used.items())
-              + f" {'ok' if ok else 'FAIL'}")
+              + f"; two runs {'bit-identical' if same_bits else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"K5, its plain version and f64 disagree at "
+            fail(f"K5, its plain version and f64 disagree (or two K5 runs "
+                 f"differ) at "
                  f"{(B, L, H, P, N, chunk, dtype, broadcast)}")
         return max(errs.values()), max(used.values())
 
@@ -1102,16 +1178,18 @@ def main() -> int:
         fail(f"flash and blocked prefill logits differ by {rel:.3e}")
 
     # 6. timing: K3, SDPA and the plain version on device time --------------
-    # Each call is queued behind a ~100 us device-side spin
-    # (core/calibrate.py's _median_time), so the events around it time the
-    # card, not the wrapper's per-call host cost (checks, allocation, ctypes,
-    # three tensor-map encodes), which exceeds K3's time at S = 512.
+    # Each call is queued behind a device-side spin longer than the host
+    # takes to queue it (core/calibrate.py's _median_time), so the events
+    # around it time the card, not the wrapper's per-call host cost (checks,
+    # allocation, ctypes, three tensor-map encodes), which exceeds K3's time
+    # at S = 512.
     from repro_torch.core import calibrate as cal
     sdpa = torch.nn.functional.scaled_dot_product_attention
     print(f"[time] flash: the median of {FLASH_REPEATS} calls (plain: 3), "
-          f"each queued behind a device-side spin of {cal.SPIN_CYCLES} "
-          f"cycles, CUDA events around the call alone; q, k, v (B,S,H,D) "
-          f"views as the models pass them")
+          f"each queued behind a device-side spin of at least "
+          f"{cal.SPIN_CYCLES} cycles and twice the host's time to queue the "
+          f"previous call, CUDA events around the call alone; q, k, v "
+          f"(B,S,H,D) views as the models pass them")
     flash_rows = []
     for label, H, KVH, D, S in FLASH_TIMING:
         q, k, v = (torch.randn((1, S, n, D), generator=gen, device=dev)
@@ -1249,8 +1327,8 @@ def main() -> int:
     args = [t.reshape(B, nc, Q, *t.shape[2:]) for t in (x, dt)] + [A] + [
         t.reshape(B, nc, Q, *t.shape[2:]) for t in (Bm, Cm)]
     k4_shape = f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C broadcast"
-    k4_ms = time_ms(lambda: ssd.ssd_chunk(*args), 50)
-    k4_plain_ms = time_ms(lambda: ssd.ssd_chunk_plain(*args), 5, warmup=1)
+    k4_ms = device_ms(lambda: ssd.ssd_chunk(*args), 30)
+    k4_plain_ms = device_ms(lambda: ssd.ssd_chunk_plain(*args), 3)
     cells = B * nc * H
     pairs = Q * (Q + 1) // 2                      # causal (i, j) pairs
     # C_i.B_j does not depend on the head: once per (batch, chunk, group),
@@ -1268,7 +1346,8 @@ def main() -> int:
     k4_bytes_s = k4_bytes / HBM_BYTES_PER_S
     k4_bound_ms = max(k4_ops_s, k4_bytes_s) * 1e3
     print(f"[time] K4 B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C "
-          f"broadcast: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
+          f"broadcast (device time, behind a spin): kernel {k4_ms:.4f} ms, "
+          f"plain {k4_plain_ms:.4f} ms, "
           f"bound {k4_bound_ms:.4f} ms (C.B^T {k4_flops_cb / 1e9:.3f} GFLOP "
           f"over {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16, M.X and states "
           f"{k4_flops_f32 / 1e9:.3f} GFLOP over {PEAK_F32_FLOPS / 1e12:g} "
@@ -1414,14 +1493,20 @@ def main() -> int:
     dy = torch.randn((B, nc, Q, H, P), generator=gen, device=dev).bfloat16()
     dstates = torch.randn((B, nc, H, N, P), generator=gen, device=dev)
     dgamma = torch.randn((B, nc, H), generator=gen, device=dev)
-    k5_ms = time_ms(lambda: ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma), 10)
-    k5_plain_ms = time_ms(
-        lambda: ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma), 5,
-        warmup=1)
+    k5_ms = device_ms(lambda: ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma), 20)
+    t0 = time.perf_counter()   # the host's time to queue one call, no wait
+    ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
+    k5_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    k5_plain_ms = device_ms(
+        lambda: ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma), 3)
     cells = B * nc * H
-    # bf16 x bf16 products, exact on the tensor cores: C B^T once per group
-    # and dM = dy x^T per head (dy is rounded to x's dtype); f32 operands
-    # per head, over causal pairs: M^T dy, V B, V^T C; and B dS, (w x) dS^T
+    # exact bf16 x bf16 products: C B^T once per group and dM = dy x^T per
+    # head (dy is rounded to x's dtype); products with an f32 operand (M, V
+    # or dS) per head, over the causal pairs: M^T dy, V B, V^T C; and B dS,
+    # (w x) dS^T.  On the tensor cores each f32 operand is two bf16 terms
+    # (hi, lo), so that work counts twice; the CUDA-core bound (f32 FMAs at
+    # 67 TFLOP/s) is printed beside it.
     k5_flops_cb = B * nc * sc.n_groups * 2 * pairs * N + cells * 2 * pairs * P
     k5_flops_f32 = cells * (2 * pairs * (P + 2 * N) + 2 * 2 * Q * N * P)
     k5_bytes = (3 * 2 * B * L * H * P             # x, dy read, dx written
@@ -1431,20 +1516,28 @@ def main() -> int:
                 + 4 * cells * N * P + 4 * cells   # dS, dgamma
                 + 2 * 4 * B * L * H * N           # dB, dC per head, f32
                 + 4 * cells)                      # da
-    k5_ops_s = max(k5_flops_cb / PEAK_BF16_FLOPS, k5_flops_f32 / PEAK_F32_FLOPS)
+    k5_ops_s = (k5_flops_cb + 2 * k5_flops_f32) / PEAK_BF16_FLOPS
     k5_bytes_s = k5_bytes / HBM_BYTES_PER_S
+    k5_cuda_core_s = max(k5_flops_cb / PEAK_BF16_FLOPS,
+                         k5_flops_f32 / PEAK_F32_FLOPS)
     k5_bound_ms = max(k5_ops_s, k5_bytes_s) * 1e3
     print(f"[time] K5 B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C "
-          f"broadcast: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, "
-          f"bound {k5_bound_ms:.4f} ms (C.B^T and dM {k5_flops_cb / 1e9:.3f} "
-          f"GFLOP "
-          f"over {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16, the rest "
-          f"{k5_flops_f32 / 1e9:.3f} GFLOP over {PEAK_F32_FLOPS / 1e12:g} "
-          f"TFLOP/s f32; {k5_bytes / 1e6:.2f} MB over "
-          f"{HBM_BYTES_PER_S / 1e12:g} TB/s); kernel at "
-          f"{(k5_flops_f32 + k5_flops_cb) / k5_ms / 1e9:.1f} TFLOP/s of "
-          f"needed work, {k5_bound_ms / k5_ms:.1%} of the bound; no single "
-          f"PyTorch call computes this function")
+          f"broadcast (device time, behind a spin): kernel {k5_ms:.4f} ms, "
+          f"plain {k5_plain_ms:.4f} ms, bound {k5_bound_ms:.4f} ms by "
+          f"{'operations' if k5_ops_s >= k5_bytes_s else 'bytes'}: tensor "
+          f"cores {k5_ops_s * 1e3:.4f} ms (C.B^T and dM "
+          f"{k5_flops_cb / 1e9:.3f} GFLOP, the f32-operand products "
+          f"{k5_flops_f32 / 1e9:.3f} GFLOP twice, hi and lo, over "
+          f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16), bytes "
+          f"{k5_bytes_s * 1e3:.4f} ms ({k5_bytes / 1e6:.2f} MB over "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s; dB and dC "
+          f"{2 * 4 * B * L * H * N / 1e6:.1f} MB of it); the bound with "
+          f"the f32-operand products as f32 FMAs on the CUDA cores "
+          f"{k5_cuda_core_s * 1e3:.4f} ms; the wrapper's host time to queue "
+          f"one call {k5_host_ms:.4f} ms (hidden by the spin); kernel at "
+          f"{k5_bound_ms / k5_ms:.1%} of the bound, "
+          f"{k5_plain_ms / k5_ms:.2f}x faster than plain; no single PyTorch "
+          f"call computes this function")
 
     # 15.-17. the calibration loop: fit, Fig. 3 tables, O3 sweep, Triad ----
     del x, dt, A, Bm, Cm, args, dy, dstates, dgamma
@@ -1483,6 +1576,8 @@ def main() -> int:
                      f"{SSD_F32_TOL} + {SSD_F32_TOL}|plain|",
         "share_of_tolerance": ssd_used,
         "ms": k4_ms, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
+        "timing": "device time: the median of calls each behind a "
+                  "device-side spin",
         "bound_ms": k4_bound_ms,
         "bound_by": "operations" if k4_ops_s >= k4_bytes_s else "bytes",
         "library_ms": None,
@@ -1503,6 +1598,8 @@ def main() -> int:
         "ms": k5_ms, "kernel_ms": k5_ms, "plain_ms": k5_plain_ms,
         "bound_ms": k5_bound_ms,
         "bound_by": "operations" if k5_ops_s >= k5_bytes_s else "bytes",
+        "timing": "device time: the median of calls each behind a "
+                  "device-side spin",
         "library_ms": None,
         "shape": f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C "
                  f"broadcast"}, {

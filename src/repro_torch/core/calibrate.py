@@ -130,10 +130,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-# Device cycles of the spin queued ahead of each timed call (~100 µs at the
-# H100's clock): longer than the host takes to queue the call, so the events
-# time the card alone.
+# The spin queued ahead of each timed call: at least SPIN_CYCLES device
+# cycles (~100 µs at the H100's clock), and at least twice as long as the
+# host took to queue the previous call, counted at SPIN_HZ (the H100's
+# highest SM clock; a slower clock only lengthens the spin).
 SPIN_CYCLES = 200_000
+SPIN_HZ = 1.98e9
 
 
 def _median_time(fn: Callable, args, repeats: int = REPEATS) -> float:
@@ -141,22 +143,27 @@ def _median_time(fn: Callable, args, repeats: int = REPEATS) -> float:
     warm-up: CUDA events around each call on the card, the host clock on
     the CPU.  Caches stay warm between repeats, as in the reference.
 
-    On the card each call is queued behind a short device-side spin
-    (``torch.cuda._sleep``, no memory traffic), so the host's cost of
-    queuing it (~20-30 µs of Python and launch, more than an L2-resident
-    launch takes) is hidden, and the events see the card's time from the
-    first event to the last kernel's end."""
+    On the card each call is queued behind a device-side spin
+    (``torch.cuda._sleep``, no memory traffic) longer than the host takes
+    to queue it (~20-30 µs of Python and launch for a K1 launch, ~0.2 ms
+    for the SSD backward's wrapper), so that cost is hidden and the events
+    see the card's time from the first event to the last kernel's end.
+    Each spin is sized from the previous timed call's queuing time (the
+    first is SPIN_CYCLES long: the warm-up's time may hold one-time work,
+    such as building the kernel)."""
     device = args[0].device
     fn(*args)
     _sync(device)
-    ts = []
+    host, ts = 0.0, []
     for _ in range(repeats):
         if device.type == "cuda":
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(max(SPIN_CYCLES, int(2 * host * SPIN_HZ)))
             e0.record()
+            t0 = time.perf_counter()
             fn(*args)
+            host = time.perf_counter() - t0
             e1.record()
             e1.synchronize()
             ts.append(e0.elapsed_time(e1) * 1e-3)

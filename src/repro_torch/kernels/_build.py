@@ -3,8 +3,9 @@
 Each source under ``csrc/`` becomes a shared library with a plain C
 interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
 seconds, not minutes).  Libraries go to ``build/repro_torch_kernels/`` at the
-repository root; the file name carries a hash of the source and the compiler
-flags, so an edited source is never served by a stale library.
+repository root; the file name carries a hash of the source, the headers
+it includes from ``csrc/`` (``#include "name.cuh"``) and the compiler
+flags, so an edited source or header is never served by a stale library.
 
     lib = load("flash_attention").lib     # builds on the first call
 
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +53,8 @@ SIGNATURES = {
         "repro_ssd_chunk_bwd": (
             ctypes.c_int,
             [_P] * 14 + [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong), _P]),
+        "repro_ssd_chunk_bwd_smem_bytes": (ctypes.c_int, [_I, _I, _I, _I]),
+        "repro_ssd_chunk_bwd_parts": (ctypes.c_int, [_I, _I]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "stream": {
@@ -81,9 +86,24 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _local_headers(text: str) -> list[str]:
+    """The ``csrc/`` headers that ``text`` includes, and theirs, in order."""
+    seen: list[str] = []
+    todo = _INCLUDE.findall(text)
+    while todo:
+        name = todo.pop(0)
+        if name not in seen and (CSRC / name).is_file():
+            seen.append(name)
+            todo += _INCLUDE.findall((CSRC / name).read_text())
+    return seen
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    text = src.read_bytes()
+    h = hashlib.sha256(text)
+    for header in _local_headers(text.decode()):
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

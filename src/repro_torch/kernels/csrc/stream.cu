@@ -51,10 +51,21 @@
 // was 7 % slower on the card (tools/kernel_variants.py); the scalar path
 // takes the capped grid.  No
 // cache-policy hints: the Fig. 3 rows at n x 1024 measure how much of a
-// ~48 MiB set the L2 keeps.  K2 takes a cap on the number of CTAs: k CTAs of 1024 threads
-// stride over the whole array, one element a thread an iteration, the
-// card's counterpart of the reference bench's host-thread count (Figs.
-// 4/5); without a cap the grid fills the card.
+// ~48 MiB set the L2 keeps.
+// K2 has K1's access layout: tiles of 1024 threads x 4 elements, each thread
+// issuing the 16-byte loads of its elements of a and b (two `double2` or one
+// `float4` each) before any arithmetic, neighbouring threads on neighbouring
+// vectors; the last n mod tile elements, and every element of a misaligned
+// call, go one a thread.  Without a cap it launches one tile a block where
+// the tiles fill two waves of the CTAs that fit at once or more (2x the L2
+// and beyond), and else those CTAs, striding over the tiles: at 3/4 of the
+// L2 (368 tiles on 264 CTAs) one tile a block leaves a short second wave
+// and was 6-10 % slower, while the striding grid was 1 % slower at 2x the
+// L2 and slower still at 2^26 elements (tools/kernel_variants.py); with a
+// cap k it launches exactly k CTAs of 1024 threads striding over the tiles
+// with the same layout: the card's counterpart of the reference bench's
+// host-thread count (Figs. 4/5).  No cache-policy hints either: the sweep at
+// 3/4 of the L2 measures what the L2 keeps.
 //
 // Plain C interface (built with nvcc into a shared library, loaded with
 // ctypes).  The kernels launch on the caller's stream, allocate nothing, and
@@ -300,18 +311,79 @@ PROBE(EXP10, double, double) PROBE(LOG, double, double) PROBE(LOG10, double, dou
 PROBE(PWR, double, double)
 #undef PROBE
 
+constexpr int kTriadThreads = 1024;  // K2's CTA
+constexpr int kTriadUnroll = 4;      // elements a thread a tile
+
 template <typename T>
-__global__ void __launch_bounds__(1024) triad_kernel(const T* __restrict__ a,
-                                                     const T* __restrict__ b, T s,
-                                                     T* __restrict__ y, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if constexpr (sizeof(T) == 8)
-      y[i] = __dadd_rn(a[i], __dmul_rn(s, b[i]));
-    else
-      y[i] = __fadd_rn(a[i], __fmul_rn(s, b[i]));
+__device__ __forceinline__ T triad_one(T a, T b, T s) {
+  if constexpr (sizeof(T) == 8)
+    return __dadd_rn(a, __dmul_rn(s, b));
+  else
+    return __fadd_rn(a, __fmul_rn(s, b));
+}
+
+// Tiles of kTriadThreads x kTriadUnroll elements on the vector path (`vec`:
+// a, b and y 16-byte aligned), thread t on pieces t, t + kTriadThreads, ...
+// of one 16-byte vector each; then the rest one element a thread.
+template <typename T>
+__global__ void __launch_bounds__(kTriadThreads) triad_kernel(const T* __restrict__ a,
+                                                              const T* __restrict__ b, T s,
+                                                              T* __restrict__ y, long long n,
+                                                              bool vec) {
+  constexpr int U = kTriadUnroll;
+  constexpr int P = 16 / sizeof(T);  // elements a piece
+  constexpr int NP = U / P;          // pieces a thread a tile
+  constexpr long long kTile = static_cast<long long>(kTriadThreads) * U;
+  const long long tiles = vec ? n / kTile : 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    T av[U], bv[U], r[U];
+    const long long e0 = tile * kTile + static_cast<long long>(threadIdx.x) * P;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const long long e = e0 + static_cast<long long>(k) * kTriadThreads * P;
+      load_piece<P>(av + k * P, a + e);
+      load_piece<P>(bv + k * P, b + e);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) r[k] = triad_one(av[k], bv[k], s);
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+      store_piece(y + e0 + static_cast<long long>(k) * kTriadThreads * P, r + k * P);
   }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = tiles * kTile + static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride)
+    y[i] = triad_one(a[i], b[i], s);
+}
+
+// max_ctas > 0: exactly that many CTAs.  Otherwise, on the vector path, one
+// tile a block where the tiles fill at least two waves of the CTAs that fit
+// at once (two a SM), and else as many CTAs as fit, striding; on the scalar
+// path as many as fit, at most one a 1024 elements.
+template <typename T>
+cudaError_t launch_triad(const T* a, const T* b, T s, T* y, long long n, int max_ctas,
+                         cudaStream_t stream) {
+  const bool vec = aligned16(a) && aligned16(b) && aligned16(y);
+  long long grid = max_ctas;
+  if (max_ctas <= 0) {
+    static int sms = 0;
+    if (sms == 0) {
+      int device = 0;
+      cudaGetDevice(&device);
+      if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+        sms = 1;
+    }
+    const long long resident = 2LL * sms;
+    const long long tile = static_cast<long long>(kTriadThreads) * kTriadUnroll;
+    const long long tiles = std::max(n / tile, 1LL);
+    if (vec)
+      grid = tiles >= 2 * resident ? tiles : std::min(tiles, resident);
+    else
+      grid = std::min((n + kTriadThreads - 1) / kTriadThreads, resident);
+  }
+  const unsigned blocks = static_cast<unsigned>(grid);
+  triad_kernel<T><<<blocks, kTriadThreads, 0, stream>>>(a, b, s, y, n, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -350,21 +422,17 @@ extern "C" int repro_stream_elementwise(int expr, int dtype, const void* x1, con
 }
 
 // K2.  dtype: 0 f64, 1 f32 (the scalar is rounded to f32 first, as the plain
-// version's Python scalar is).  `grid` CTAs of 1024 threads.
+// version's Python scalar is).  max_ctas: a cap on the CTAs of 1024 threads
+// (exactly that many launch), or 0 for none.
 extern "C" int repro_stream_triad(int dtype, const void* a, const void* b, double scalar,
-                                  void* y, long long n, int grid, void* stream) {
-  if (n <= 0 || grid <= 0 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+                                  void* y, long long n, int max_ctas, void* stream) {
+  if (n <= 0 || max_ctas < 0 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    triad_kernel<double><<<grid, 1024, 0, s>>>(static_cast<const double*>(a),
-                                               static_cast<const double*>(b), scalar,
-                                               static_cast<double*>(y), n);
-  else
-    triad_kernel<float><<<grid, 1024, 0, s>>>(static_cast<const float*>(a),
-                                              static_cast<const float*>(b),
-                                              static_cast<float>(scalar),
-                                              static_cast<float*>(y), n);
-  return cudaGetLastError();
+    return launch_triad(static_cast<const double*>(a), static_cast<const double*>(b), scalar,
+                        static_cast<double*>(y), n, max_ctas, s);
+  return launch_triad(static_cast<const float*>(a), static_cast<const float*>(b),
+                      static_cast<float>(scalar), static_cast<float*>(y), n, max_ctas, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -226,9 +226,9 @@ def ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates, dgamma):
             torch.empty((B, nc, Q, H, N), dtype=torch.float32, device=dev),
             torch.empty((B, nc, H), dtype=torch.float32, device=dev))
     n_tiles = -(-Q // 64)
-    # per cell: dw, column sums of U and of dM∘M, and one slot of row sums of
-    # dM∘M per column tile (the kernel's layout; see ssd_scan_bwd.cu)
-    scratch = torch.empty((B * nc * H, 3 + n_tiles, Q), dtype=torch.float32,
+    # per cell, in f64: dw, column sums of U and of dM∘M, and one slot of row
+    # sums of dM∘M per column tile (the kernel's layout; see ssd_scan_bwd.cu)
+    scratch = torch.empty((B * nc * H, 3 + n_tiles, Q), dtype=torch.float64,
                           device=dev)
     _launch_bwd(x, dt, A.float().contiguous(), Bm, Cm, dy,
                 dstates.contiguous(), dgamma.contiguous(), outs, scratch)

@@ -27,7 +27,6 @@ launches the kernel or raises.  ``elementwise.launches`` and
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import torch
@@ -146,11 +145,6 @@ def _check_1d(what: str, t: torch.Tensor, n: int, dtype: torch.dtype,
         raise ValueError(f"{what} on {t.device}, x1 on {device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         lib = _build.load("stream").lib
@@ -214,10 +208,12 @@ def stream_triad(a: torch.Tensor, b: torch.Tensor, scalar: float = 3.0, *,
                  ) -> torch.Tensor:
     """y = a + scalar * b (STREAM Triad) over 1-D ``a``, ``b`` of one dtype.
 
-    On the card ``max_ctas=None`` launches a grid that fills it (two CTAs of
-    1024 threads per SM); ``max_ctas=k`` launches k such CTAs, which stride
-    over the whole array.  ``n % min(block, n) == 0`` is asserted as in the
-    reference.
+    On the card ``max_ctas=None`` launches one CTA of 1024 threads per tile
+    of 4096 elements where the tiles fill two waves of the CTAs the card
+    holds at once, and else as many CTAs as it holds, striding over the
+    tiles (for 16-byte aligned arrays; otherwise one element a thread);
+    ``max_ctas=k`` launches exactly k such CTAs, striding.  ``n % min(block, n) == 0`` is
+    asserted as in the reference.
     """
     n = a.shape[0]
     block = min(block, n)
@@ -231,15 +227,14 @@ def stream_triad(a: torch.Tensor, b: torch.Tensor, scalar: float = 3.0, *,
         raise TypeError(f"stream_triad takes float64 or float32, not {a.dtype}")
     _check_1d("a", a, n, a.dtype, device)
     _check_1d("b", b, n, a.dtype, device)
-    full = _sm_count(device) * (2048 // TRIAD_THREADS)
-    grid = min(-(-n // TRIAD_THREADS), full if max_ctas is None else max_ctas)
-    if grid < 1:
+    if max_ctas is not None and max_ctas < 1:
         raise ValueError(f"max_ctas must be at least 1, not {max_ctas}")
     y = torch.empty_like(a)
     lib = _build.load("stream").lib
     err = lib.repro_stream_triad(
         _FIT_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), float(scalar),
-        y.data_ptr(), n, grid, torch.cuda.current_stream(device).cuda_stream)
+        y.data_ptr(), n, max_ctas or 0,
+        torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "stream_triad")
     stream_triad.launches += 1
     return y

@@ -30,7 +30,8 @@ relative and absolute for all 28 expressions, and bit for bit on its vector
 path (aligned) and its scalar path (one element off 16-byte alignment) at
 lengths with and without a ragged tail; poly16 at 1e-12 in f64 and 1e-5 in
 f32 (one FMA a Horner step against a product and a sum); STREAM
-Triad K2 at rtol 1e-5, atol 1e-6 in f32 and 1e-12 in f64, at every CTA cap.
+Triad K2 at rtol 1e-5, atol 1e-6 in f32 and bit for bit in f64, at every
+CTA cap, on both of its paths.  K5 gives the same bits on two runs.
 """
 import numpy as np
 import pytest
@@ -245,7 +246,11 @@ def test_reduced_serve_through_ssd_kernel_matches_chunked(cuda_device, arch):
 
 
 # ------------------------------------------------------------------ K5
-BWD_GRID = SSD_GRID[:5] + [(48, 3, 8, 16, 48)]
+# then P 128, N 256 (both column parts of dB), and the models' chunk shapes
+# at a small batch: Q 256, P 64, N 128 (mamba2-1.3b) and 64 (zamba2-1.2b),
+# H 4, one chunk and two
+BWD_GRID = SSD_GRID + [(48, 3, 8, 16, 48)] + [
+    (L, 4, 64, N, 256) for N in (128, 64) for L in (256, 512)]
 
 
 @pytest.mark.parametrize("broadcast", [False, True])
@@ -288,6 +293,34 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, L, H, P, N, chunk, dtype,
         assert (np.abs(g - e) <= allowed(i, e)).all(), i
         assert (np.abs(w - e) <= allowed(i, e)).all(), i
         assert (np.abs(g - w) <= 2 * allowed(i, w)).all(), i
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_gives_the_same_bits_twice(cuda_device, dtype,
+                                                  broadcast):
+    """No float atomics: the sums run in a fixed order, so two runs on the
+    same inputs give identical bits (mamba2-1.3b's chunk shape, two
+    chunks)."""
+    L, H, P, N, Q = 512, 4, 64, 128, 256
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L, H, P, N, 15, broadcast,
+                                   dtype)
+    args = [_chunks(t, Q) for t in (x, dt)] + [A] \
+        + [_chunks(t, Q) for t in (Bm, Cm)]
+    B, nc = args[0].shape[:2]
+    gen = torch.Generator(cuda_device).manual_seed(16)
+    dy = torch.randn((B, nc, Q, H, P), generator=gen, device=cuda_device
+                     ).to(dtype)
+    dstates = torch.randn((B, nc, H, N, P), generator=gen, device=cuda_device)
+    dgamma = torch.randn((B, nc, H), generator=gen, device=cuda_device)
+    first = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
+    second = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
 
 
 @pytest.mark.parametrize("with_init", [False, True])
@@ -411,19 +444,25 @@ def test_fit_entries_match_plain(cuda_device, dtype, tol, n, offset):
     assert z.dtype == dtype and z.shape == x.shape and not z.any()
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("max_ctas", [1, 2, 4, 8, 16, 33, 66, 132, None])
 @pytest.mark.parametrize("n", [184 * 8192, 1 << 22, 37 * 8192, 5000])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 1e-6)),
                                        (torch.float64, (1e-12, 1e-12))])
 def test_stream_triad_kernel_matches_plain(cuda_device, dtype, tol, n,
-                                           max_ctas):
+                                           max_ctas, offset):
+    """Offset 0 takes the vector path (and the scalar tail), offset 1 (views
+    one element into their buffers, not 16-byte aligned) the scalar path;
+    in f64 0 elements differ from the plain version."""
     rng = np.random.default_rng(n)
-    a, b = (torch.from_numpy(rng.standard_normal(n)).to(cuda_device, dtype)
-            for _ in range(2))
+    a, b = (torch.from_numpy(rng.standard_normal(n + offset)).to(
+        cuda_device, dtype)[offset:] for _ in range(2))
     got = stream.stream_triad(a, b, 3.0, max_ctas=max_ctas)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, stream.stream_triad_plain(a, b, 3.0),
-                               rtol=tol[0], atol=tol[1])
+    want = stream.stream_triad_plain(a, b, 3.0)
+    torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+    if dtype == torch.float64:
+        assert int((got != want).sum()) == 0
 
 
 def test_stream_kernels_reject_what_they_do_not_take(cuda_device):

@@ -132,7 +132,8 @@ def test_ssd_scan_never_falls_back_to_the_cpu():
                      torch.zeros(2, device="meta"), bc, bc, chunk=16)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan", "stream"])
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan", "ssd_scan_bwd",
+                                  "stream"])
 def test_ctypes_signatures_match_the_sources(name):
     """Each C entry point declared for ctypes exists in its CUDA source with
     as many parameters as argtypes: a mismatch would pass pointers as ints
