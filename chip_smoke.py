@@ -12,14 +12,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    started together (seconds, ptxas register, shared-memory and spill
    lines; K3's dynamic shared memory a CTA for each head dim; K5's for
    each instance, with the times it forms s = C.B^T and dM = dy.x^T per
-   tile pair);
+   tile pair; K4's for each instance; the run fails if ptxas reports a
+   spill or serialized wgmma (C75xx) for any K4 instance);
 3. kernel vs plain: each kernel against its plain PyTorch version on the card:
    flash attention (K3) at the unit-test grid, its tile edges (Sq, Sk of
    127-129 and 2047, G = 16 and 1, every head dim) and the chatglm3-6b and
    zamba2-1.2b prefill shapes on (B, S, H, D) views;
    the SSD chunk kernel (K4) at the reference's grid, a Q < chunk case and the
-   mamba2-1.3b and zamba2-1.2b prefill shapes, f32 and bf16, B/C contiguous
-   and head-broadcast, then ``ops.ssd_scan`` with ``initial_state`` against
+   mamba2-1.3b and zamba2-1.2b prefill and training shapes, f32 and bf16,
+   B/C contiguous and head-broadcast, each run twice for identical bits,
+   and where cs rises (outside its factorization's precondition, which it
+   checks per head): with dt < 0 on rows of some heads, and with A > 0 on
+   some heads (y from f32 inputs there within twice its tolerance, the
+   documented limit of its split products), then ``ops.ssd_scan`` with
+   ``initial_state`` against
    the split-sequence identity; the SSD backward kernel (K5) against its
    plain version and both against the same math in f64, at the same grid
    and the mamba2-1.3b and zamba2-1.2b training shapes, each run twice for
@@ -54,9 +60,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    zamba2-1.2b through K4 (``kernel``) against plain PyTorch (``chunked``)
    with the same weights in f32, the kernel path in f32 and in bf16, and
    the same argmax;
-10. timing: K4 at mamba2-1.3b's 2048-token prefill shape on device time
-    (each call behind a device-side spin) beside its bound and its plain
-    version (no single PyTorch call computes this function);
+10. timing: K4 at mamba2-1.3b's 2048-token prefill shape, its training
+    shape (batch 4) and zamba2-1.2b's prefill shape (N 64) on device time
+    (each call behind a device-side spin) beside its bound (the larger of
+    its tensor-core bound, the f32-operand products counted twice for their
+    hi/lo halves, and its byte bound; the bound with those products as f32
+    FMAs printed beside them) and its plain version (no single PyTorch
+    call computes this function);
 11. full-width training of mamba2-1.3b through ``launch.train.train_loop``
     (``RunConfig`` defaults: bf16 parameters and compute, f32 AdamW, remat
     full; ``ssd_impl="kernel"``): 5 steps of 4 x 2048 synthetic tokens; K4
@@ -103,6 +113,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -116,7 +127,7 @@ NEW_TOKENS = 32
 TIMING_S = 2048
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12         # CUDA-core FMAs, the rate K4's design uses
+PEAK_F32_FLOPS = 67e12         # CUDA-core FMAs (the bounds' f32 variants)
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")  # model paths
 SOURCES = (*KERNELS, "stream")        # csrc/*.cu, built side by side
@@ -154,6 +165,9 @@ FLASH_REPEATS = 30
 # bf16: 2e-2.  Relative and absolute alike: |err| <= tol + tol|plain|.
 SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 SSD_F32_TOL = 1e-3
+# A of heads 0-3 where K4's check of cs rising takes A > 0: the CPU
+# precision test's values (tests/_ssd_split.py)
+RISING_A = (-0.5, 0.002, -0.3, 0.005)
 SSD_GRID = [  # (B, L, H, P, N, chunk): the reference's grid, Q < chunk, the
     (2, 64, 2, 16, 16, 16), (2, 128, 4, 32, 32, 32),   # models' prefill shapes
     (2, 96, 2, 16, 8, 32), (2, 100, 4, 64, 128, 256),
@@ -207,6 +221,16 @@ TRIAD_CTAS = (1, 2, 4, 8, 16, 33, 66, 132)
 # every cap of the sweep and the full grid
 TRIAD_CHECK_NS = (TRIAD_L2_N, TRIAD_MEM_N, 37 * 8192, 5000)
 TRIAD_CHECK_CTAS = (*TRIAD_CTAS, None)
+
+
+def bit_identical(xs, ys) -> bool:
+    """Two runs' outputs hold the same bits (f32 or bf16 tensors)."""
+    import torch
+    return all(torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                  else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2
+                                  else torch.int32))
+               for a, b in zip(xs, ys))
 
 
 def fail(msg: str) -> None:
@@ -774,6 +798,25 @@ def main() -> int:
                       f"row CTAs of every part); with B/C shared by the "
                       f"heads s is formed for each head")
 
+    # K4: every instance without a spill and without serialized wgmma
+    fwd = next(b for b in builds if b.name == "ssd_scan")
+    print(f"[build] ssd_scan dynamic shared memory a CTA, f32 / bf16: "
+          f"{fwd.lib.repro_ssd_chunk_fwd_smem_bytes(0)} / "
+          f"{fwd.lib.repro_ssd_chunk_fwd_smem_bytes(1)} B; C.B^T formed once "
+          f"per 64-row tile, head block and 64 columns of P where B and C "
+          f"are shared by the heads")
+    spills = [line.strip() for line in fwd.log.splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    serialized = [line.strip() for line in fwd.log.splitlines()
+                  if "wgmma" in line and "serialized" in line]
+    n_k4 = sum("Compiling entry function" in line and "ssd_chunk_fwd" in line
+               for line in fwd.log.splitlines())
+    print(f"[build] ssd_scan: {n_k4} kernel instances, {len(spills)} with a "
+          f"spill, {len(serialized)} lines of serialized wgmma (C75xx)")
+    if spills or serialized or n_k4 == 0:
+        fail(f"K4's ptxas report: spills {spills}, serialized wgmma "
+             f"{serialized}, {n_k4} instances")
+
     # 3. kernel vs plain ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -827,10 +870,25 @@ def main() -> int:
                   for _ in range(2))
         return x, dt, A, Bm, Cm
 
-    def compare_ssd(B, L, H, P, N, chunk, dtype, broadcast):
+    def compare_ssd(B, L, H, P, N, chunk, dtype, broadcast, rising=None):
+        """K4 against its plain version, and against itself run twice;
+        outside the precondition of K4's factorization of exp(cs_i - cs_j),
+        which the kernel checks per head, with ``rising`` "rows": dt < 0 on
+        40 rows of the odd heads (cs rises there, by under 2); "A": A > 0
+        on the odd heads (0.002, 0.005 at H 4), so cs rises over the whole
+        chunk, where y from f32 inputs is held to twice its tolerance (the
+        documented limit of the split products: 1.25 times it against f64
+        in the CPU emulation, tests/test_torch_ssd_fwd_precision.py)."""
         Q = min(chunk, L)
         nc = L // Q
         x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, dtypes[dtype], broadcast)
+        if rising == "rows":
+            dt = dt.clone()
+            dt[:, 100:140, 1::2] *= -0.05
+        elif rising == "A":
+            A = A.clone()
+            A[1::2] = torch.tensor(RISING_A, device=dev)[1::2][:H // 2]
+        y_limit = 2 if rising == "A" and dtype == "float32" else 1
         args = [t[:, :nc * Q].reshape(B, nc, Q, *t.shape[2:])
                 for t in (x, dt)] + [A] + [
                 t[:, :nc * Q].reshape(B, nc, Q, *t.shape[2:])
@@ -838,11 +896,11 @@ def main() -> int:
         if broadcast and args[3].stride(3) != 0:
             fail("the head-broadcast B was copied")
         got = ssd.ssd_chunk(*args)
-        torch.cuda.synchronize()
+        same_bits = bit_identical(got, ssd.ssd_chunk(*args))
         want = ssd.ssd_chunk_plain(*args)
         errs, used = [], 0.0
-        for g, w, tol in zip(got, want, (SSD_TOL[dtype], SSD_F32_TOL,
-                                         SSD_F32_TOL)):
+        for g, w, tol in zip(got, want, (y_limit * SSD_TOL[dtype],
+                                         SSD_F32_TOL, SSD_F32_TOL)):
             if g.shape != w.shape or g.dtype != w.dtype:
                 fail(f"K4 output {tuple(g.shape)} {g.dtype}, plain "
                      f"{tuple(w.shape)} {w.dtype}")
@@ -850,23 +908,33 @@ def main() -> int:
             errs.append(diff.max().item())
             used = max(used, (diff / (tol + tol * w.float().abs())).max()
                        .item())
-        ok = used <= 1 and all(torch.isfinite(g).all() for g in got)
+        ok = same_bits and used <= 1 and all(torch.isfinite(g).all()
+                                             for g in got)
+        where = {None: "", "rows": ", cs rising on rows of the odd heads",
+                 "A": ", cs rising over the chunk on the odd heads (A > 0)"}
         print(f"[check] K4 B={B} nc={nc} Q={Q} H={H} P={P} N={N} {dtype} "
-              f"{'broadcast' if broadcast else 'contiguous'} B/C: max|err| "
+              f"{'broadcast' if broadcast else 'contiguous'} B/C"
+              f"{where[rising]}: max|err| "
               f"y {errs[0]:.3e}, states {errs[1]:.3e}, gamma {errs[2]:.3e}; "
-              f"{used:.1%} of |err| <= tol + tol|plain| (y {SSD_TOL[dtype]:g}"
-              f", states/gamma {SSD_F32_TOL:g}) {'ok' if ok else 'FAIL'}")
+              f"{used:.1%} of |err| <= tol + tol|plain| (y "
+              f"{y_limit * SSD_TOL[dtype]:g}, states/gamma {SSD_F32_TOL:g}); "
+              f"two runs "
+              f"{'bit-identical' if same_bits else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"K4 disagrees with its plain version at "
-                 f"{(B, L, H, P, N, chunk, dtype, broadcast)}")
+            fail(f"K4 disagrees with its plain version (or two K4 runs "
+                 f"differ) at {(B, L, H, P, N, chunk, dtype, broadcast)}")
         return max(errs), used
 
     ssd_checks = {}
-    for shape in SSD_GRID:
+    for shape in SSD_GRID + SSD_BWD_GRID[4:]:   # and the training shapes
         for dtype in ("float32", "bfloat16"):
             for broadcast in (False, True):
                 ssd_checks[shape, dtype, broadcast] = compare_ssd(
                     *shape, dtype, broadcast)
+    for rising in ("rows", "A"):
+        for dtype in ("float32", "bfloat16"):
+            compare_ssd(2, 512, 4, 64, 128, 256, dtype, True, rising=rising)
     ssd_err, ssd_used = map(max, zip(*(
         v for (shape, dtype, broadcast), v in ssd_checks.items()
         if shape[1] == 2048 and dtype == "bfloat16" and broadcast)))
@@ -917,14 +985,8 @@ def main() -> int:
         dstates = torch.randn((B, nc, H, N, P), generator=gen, device=dev)
         dgamma = torch.randn((B, nc, H), generator=gen, device=dev)
         got = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
-        again = ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma)
-        torch.cuda.synchronize()
-        same_bits = all(torch.equal(a.view(torch.int16 if a.element_size() == 2
-                                           else torch.int32),
-                                    b.view(torch.int16 if b.element_size() == 2
-                                           else torch.int32))
-                        for a, b in zip(got, again))
-        del again
+        same_bits = bit_identical(got, ssd.ssd_chunk_bwd(*args, dy, dstates,
+                                                         dgamma))
         want = ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma)
         exact = ssd.ssd_chunk_bwd_plain(*(t.double() for t in (
             *args, dy, dstates, dgamma)))
@@ -1318,48 +1380,65 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. K4 timing at mamba2-1.3b's 2048-token prefill shape ---------------
+    # 10. K4 timing at mamba2-1.3b's prefill and training shapes and at
+    # zamba2-1.2b's prefill shape ------------------------------------------
+    k4_times = []
+    for label, B, cfg_t in ((f"{SSM_ARCH} prefill", 1, ssm_cfg),
+                            (f"{SSM_ARCH} training", SSM_TRAIN_BATCH, ssm_cfg),
+                            (f"{HYBRID_ARCH} prefill", 1, hyb_cfg)):
+        sc, L = cfg_t.ssm, TIMING_S
+        H, P, N, Q = sc.n_heads(cfg_t.d_model), sc.head_dim, sc.d_state, sc.chunk
+        nc = L // Q
+        pairs = Q * (Q + 1) // 2                  # causal (i, j) pairs
+        x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, torch.bfloat16, True)
+        args = [t.reshape(B, nc, Q, *t.shape[2:]) for t in (x, dt)] + [A] + [
+            t.reshape(B, nc, Q, *t.shape[2:]) for t in (Bm, Cm)]
+        shape = f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C broadcast"
+        k4_ms = device_ms(lambda: ssd.ssd_chunk(*args), 30)
+        k4_plain_ms = device_ms(lambda: ssd.ssd_chunk_plain(*args), 3)
+        cells = B * nc * H
+        # C_i.B_j does not depend on the head: once per (batch, chunk,
+        # group), bf16 x bf16 products, exact on the tensor cores; M.X and
+        # the state B^T (w X) per head take an f32 operand (M, w X), which
+        # the tensor cores take as two bf16 terms (hi, lo), so that work
+        # counts twice.  The bound of K4's first design (those products as
+        # f32 FMAs on the CUDA cores) is printed beside it.
+        flops_cb = B * nc * sc.n_groups * 2 * pairs * N
+        flops_f32 = cells * (2 * pairs * P + 2 * Q * N * P)
+        nbytes = (2 * 2 * B * L * H * P              # x read, y_diag written
+                  + 2 * B * L * H                    # dt
+                  + 2 * 2 * B * L * N                # B, C: one group
+                  + 4 * H                            # A
+                  + 4 * cells * N * P + 4 * cells)   # states, gamma (f32)
+        ops_s = (flops_cb + 2 * flops_f32) / PEAK_BF16_FLOPS
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        cuda_core_s = max(flops_cb / PEAK_BF16_FLOPS,
+                          flops_f32 / PEAK_F32_FLOPS)
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        bound_by = "operations" if ops_s >= bytes_s else "bytes"
+        print(f"[time] K4 {label}, {shape} (device time, behind a spin): "
+              f"kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by}: tensor cores "
+              f"{ops_s * 1e3:.4f} ms (C.B^T {flops_cb / 1e9:.4f} GFLOP, "
+              f"M.X and the state {flops_f32 / 1e9:.3f} GFLOP twice, hi and "
+              f"lo, over {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16), bytes "
+              f"{bytes_s * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB over "
+              f"{HBM_BYTES_PER_S / 1e12:g} TB/s); the bound with M.X and the "
+              f"state as f32 FMAs on the CUDA cores "
+              f"{cuda_core_s * 1e3:.4f} ms; kernel at "
+              f"{bound_ms / k4_ms:.1%} of the bound, "
+              f"{k4_plain_ms / k4_ms:.2f}x faster than plain; no single "
+              f"PyTorch call computes this function")
+        k4_times.append({"label": label, "shape": shape, "ms": k4_ms,
+                         "plain_ms": k4_plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+        del x, dt, A, Bm, Cm, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    # phase 14 times K5 at mamba2-1.3b's training shape
     sc = ssm_cfg.ssm
-    B, L = 1, 2048
     H, P, N, Q = sc.n_heads(ssm_cfg.d_model), sc.head_dim, sc.d_state, sc.chunk
-    nc = L // Q
-    x, dt, A, Bm, Cm = ssd_inputs(B, L, H, P, N, torch.bfloat16, True)
-    args = [t.reshape(B, nc, Q, *t.shape[2:]) for t in (x, dt)] + [A] + [
-        t.reshape(B, nc, Q, *t.shape[2:]) for t in (Bm, Cm)]
-    k4_shape = f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C broadcast"
-    k4_ms = device_ms(lambda: ssd.ssd_chunk(*args), 30)
-    k4_plain_ms = device_ms(lambda: ssd.ssd_chunk_plain(*args), 3)
-    cells = B * nc * H
-    pairs = Q * (Q + 1) // 2                      # causal (i, j) pairs
-    # C_i.B_j does not depend on the head: once per (batch, chunk, group),
-    # bf16 x bf16 products, exact on the tensor cores; M.X and the state
-    # B^T diag(w) X per head take f32 operands (M, w) at the f32 rate
-    k4_flops_cb = B * nc * sc.n_groups * 2 * pairs * N
-    k4_flops_f32 = cells * (2 * pairs * P + 2 * Q * N * P)
-    k4_flops = k4_flops_cb + k4_flops_f32
-    k4_bytes = (2 * 2 * B * L * H * P             # x read, y_diag written
-                + 2 * B * L * H                   # dt
-                + 2 * 2 * B * L * N               # B, C: one group
-                + 4 * H                           # A
-                + 4 * cells * N * P + 4 * cells)  # states, gamma (f32)
-    k4_ops_s = max(k4_flops_cb / PEAK_BF16_FLOPS, k4_flops_f32 / PEAK_F32_FLOPS)
-    k4_bytes_s = k4_bytes / HBM_BYTES_PER_S
-    k4_bound_ms = max(k4_ops_s, k4_bytes_s) * 1e3
-    print(f"[time] K4 B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C "
-          f"broadcast (device time, behind a spin): kernel {k4_ms:.4f} ms, "
-          f"plain {k4_plain_ms:.4f} ms, "
-          f"bound {k4_bound_ms:.4f} ms (C.B^T {k4_flops_cb / 1e9:.3f} GFLOP "
-          f"over {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16, M.X and states "
-          f"{k4_flops_f32 / 1e9:.3f} GFLOP over {PEAK_F32_FLOPS / 1e12:g} "
-          f"TFLOP/s f32; {k4_bytes / 1e6:.2f} MB over "
-          f"{HBM_BYTES_PER_S / 1e12:g} TB/s); kernel at "
-          f"{k4_flops / k4_ms / 1e9:.1f} TFLOP/s of needed work, "
-          f"{k4_bound_ms / k4_ms:.1%} of the bound; no single PyTorch call "
-          f"computes this function")
-
-    del x, dt, A, Bm, Cm, args
-    gc.collect()
-    torch.cuda.empty_cache()
+    pairs = Q * (Q + 1) // 2
 
     # 11./12. full-width training through train_loop -------------------------
     def train_full(arch, batch, steps, want_per_step):
@@ -1575,13 +1654,14 @@ def main() -> int:
                      f"{SSD_TOL['bfloat16']}|plain|; states, gamma "
                      f"{SSD_F32_TOL} + {SSD_F32_TOL}|plain|",
         "share_of_tolerance": ssd_used,
-        "ms": k4_ms, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
+        "ms": k4_times[0]["ms"], "kernel_ms": k4_times[0]["ms"],
+        "plain_ms": k4_times[0]["plain_ms"],
         "timing": "device time: the median of calls each behind a "
                   "device-side spin",
-        "bound_ms": k4_bound_ms,
-        "bound_by": "operations" if k4_ops_s >= k4_bytes_s else "bytes",
+        "bound_ms": k4_times[0]["bound_ms"],
+        "bound_by": k4_times[0]["bound_by"],
         "library_ms": None,
-        "shape": k4_shape}, {
+        "shape": k4_times[0]["shape"], "by_shape": k4_times}, {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:58",

@@ -47,6 +47,7 @@ SIGNATURES = {
             ctypes.c_int,
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              ctypes.POINTER(ctypes.c_longlong), _P]),
+        "repro_ssd_chunk_fwd_smem_bytes": (ctypes.c_int, [_I]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "ssd_scan_bwd": {

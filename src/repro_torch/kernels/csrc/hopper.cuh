@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by flash attention (K3) and the SSD
-// backward kernel (K5): warpgroup matrix multiply (`wgmma`) on shared-memory
-// tiles in the 128-byte-swizzled layout (64-byte for K3 at D = 32), its
-// descriptors and fences, asynchronous copies into that layout, and the
-// hi/lo bf16 split of an f32 value.
+// kernels, forward (K4) and backward (K5): warpgroup matrix multiply
+// (`wgmma`) on shared-memory tiles in the 128-byte-swizzled layout (64-byte
+// for K3 at D = 32), its descriptors and fences, asynchronous copies into
+// that layout and bulk copies out of shared memory, and the hi/lo bf16
+// split of an f32 value.
 //
 // Tile layout.  A tile of R rows and F features (F a multiple of 64) is F/64
 // column chunks of R rows x 128 bytes (64 bf16), 1024-byte aligned; within a
@@ -95,40 +96,80 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v[0]), "r"(v[1]),
+               "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory to global memory by the
+// bulk-copy engine, 16-byte aligned at both ends; shared-memory writes of
+// other threads reach it after fence_async_smem and a barrier.  The source
+// may be written again once bulk_wait_read has returned.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {  // at most N groups still read shared memory
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait() {       // every group's writes are done
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 // (a, b) as bf16 pairs hi = bf16(v) and lo = bf16(v - hi), a in the low
 // half: hi + lo keeps ~16 of f32's 24 mantissa bits.
 __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+  hi = bits(__floats2bfloat162_rn(a, b));
+  // the halves' f32 values by bit operations (exact: bf16 is f32's top half)
+  lo = bits(__floats2bfloat162_rn(a - __uint_as_float(hi << 16),
+                                  b - __uint_as_float(hi & 0xffff0000u)));
+}
+
+// The A fragment of k-step jj / 2 from an accumulator row pair: values of
+// column block jj (8 columns) at e = 0, 1 (row lane / 4) and 2, 3 (row + 8),
+// split into hi and lo.
+template <int K>
+__device__ __forceinline__ void pack_frag(uint32_t (&hi)[K][4], uint32_t (&lo)[K][4], int jj,
+                                          const float (&v)[4]) {
+  const int kk = jj >> 1, r = (jj & 1) * 2;
+  split2(v[0], v[1], hi[kk][r], lo[kk][r]);
+  split2(v[2], v[3], hi[kk][r + 1], lo[kk][r + 1]);
 }
 
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulators d[N / 2] a thread.
-// ss: A (K-major) and B from shared memory; rs: A from registers (the
-// m16n8k16 A fragment of the thread's warp).  TB: B is MN-major (1) or
-// K-major (0).  D fragment: d[4j + e] is row 16 * warp + lane / 4 + 8 * (e / 2),
-// column 8j + 2 * (lane % 4) + e % 2.  ss's scale_d = 0 overwrites d.
+// ss: A and B from shared memory; rs: A from registers (the m16n8k16 A
+// fragment of the thread's warp).  TB: B is MN-major (1) or K-major (0);
+// ss's TA: A is MN-major (1: rows = K, features = M, read through desc_mn)
+// or K-major (0).  D fragment: d[4j + e] is row 16 * warp + lane / 4 +
+// 8 * (e / 2), column 8j + 2 * (lane % 4) + e % 2.  scale_d = 0 overwrites
+// d (rs accumulates by default).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<32> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b) {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b,
+                                            int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -137,29 +178,30 @@ template <> struct Wgmma<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 
 template <> struct Wgmma<64> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b) {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b,
+                                            int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -172,12 +214,12 @@ template <> struct Wgmma<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 
 template <> struct Wgmma<128> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -186,7 +228,7 @@ template <> struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -198,10 +240,11 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b) {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b,
+                                            int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -221,13 +264,14 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 
 template <> struct Wgmma<256> {
   template <int TB>
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b) {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b,
+                                            int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -262,7 +306,7 @@ template <> struct Wgmma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 }  // namespace hopper

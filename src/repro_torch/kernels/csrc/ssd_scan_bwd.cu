@@ -98,10 +98,12 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace ssd;
 
 constexpr int kThreads = 128;           // one warpgroup a CTA
 constexpr int kTile = 64;               // rows and columns of a tile
@@ -132,15 +134,6 @@ struct Params {
   long long ds_s[4];      // dstates as (batch, chunk, row n, head)
   int vec;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* ptr, float v) { *ptr = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* ptr, float v) { *ptr = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ long long at(const long long s[4], int b, int c, int q, int h) {
-  return b * s[0] + c * s[1] + q * s[2] + h * s[3];
-}
 
 __host__ __device__ __forceinline__ int n_tiles(int Q) { return (Q + kTile - 1) / kTile; }
 
@@ -197,29 +190,6 @@ __device__ void chunk_cumsum(const Params& p, int b, int c, int h, float* dts, f
     }
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t (&v)[4]) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v[0]), "r"(v[1]),
-               "r"(v[2]), "r"(v[3])
-               : "memory");
-}
-
-__device__ __forceinline__ void load8(float (&v)[8], const float* src) {
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 b = *reinterpret_cast<const float4*>(src + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* src) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    v[2 * k] = f.x;
-    v[2 * k + 1] = f.y;
-  }
 }
 
 // Rows q0 .. q0 + ROWS - 1 of a (batch, chunk, row, head, feature) tensor
@@ -334,17 +304,6 @@ template <typename T, int PT, int NT> struct RowLayout : Shape<T, PT, NT> {
   static constexpr size_t kBytes = F_OFF + 4 * 2 * kMaxQ + 1024;
   static_assert(kBytes <= 232448, "shared memory");
 };
-
-// The A fragment of k-step jj / 2 from an accumulator row pair: values of
-// column block jj (8 columns) at e = 0, 1 (row lane / 4) and 2, 3 (row + 8),
-// split into hi and lo.
-template <int K>
-__device__ __forceinline__ void pack_frag(uint32_t (&hi)[K][4], uint32_t (&lo)[K][4], int jj,
-                                          const float (&v)[4]) {
-  const int kk = jj >> 1, r = (jj & 1) * 2;
-  split2(v[0], v[1], hi[kk][r], lo[kk][r]);
-  split2(v[2], v[3], hi[kk][r + 1], lo[kk][r + 1]);
-}
 
 // ---- column CTAs: (cell, column tile j, part of dB).  kDx: the CTA of part
 // 0, which forms s, M and dx and stores dx, dw and the sums; otherwise (NPART
@@ -996,15 +955,6 @@ template <int PT>
 int parts_p(int N) {
   return N <= 64 ? Shape<float, PT, 64>::NPART
                  : N <= 128 ? Shape<float, PT, 128>::NPART : Shape<float, PT, 256>::NPART;
-}
-
-// A tensor takes 16-byte loads if its base and its four strides are
-// multiples of 16 bytes and its features come in whole 8-element pieces.
-bool takes_vec(const void* ptr, const long long* s, int features, int elem) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || features % 8 != 0) return false;
-  for (int k = 0; k < 4; ++k)
-    if ((s[k] * elem) % 16 != 0) return false;
-  return true;
 }
 
 }  // namespace

@@ -11,11 +11,16 @@ in f32 (the kernel runs f32 in full f32, never TF32), 2e-2 in bf16, the
 bf16 kernel also at its tile edges (127-129 and 2047 rows and keys), for
 every head dim, on (B, S, H, D) views.  The SSD
 chunk kernel (K4) is held to its plain version at 1e-3 on its f32 outputs
-(both compute in f32, but the kernel's cumsum is a warp scan and its dot
-products sum in another order; at Q = 256 ``cs`` reaches ~-230 over a chunk,
-where one f32 step is 1.5e-5, so y of magnitude ~10 differs by ~1e-3) and
-at 2e-2 on y_diag in bf16 (stored in bf16); states and gamma are f32 in both
-dtypes.  The SSD backward kernel (K5) and its plain version are held to
+(the kernel's cumsum is a warp scan and its products run on bf16 tensor
+cores with the f32 operands split into hi and lo halves; at Q = 256 ``cs``
+reaches ~-230 over a chunk, where one f32 step is 1.5e-5, so y of magnitude
+~10 differs by ~1e-3) and at 2e-2 on y_diag in bf16 (stored in bf16);
+states and gamma are f32 in both dtypes.  K4 is also held at the models'
+chunk shapes, where cs rises on some rows (outside its factorization's
+precondition, which it checks per head), and to the same bits on two
+runs; where A > 0 makes cs rise over a whole chunk, its y from f32 inputs
+is shown to miss 1e-3 of the exact value, the documented limit of its
+split products, and to stay within twice it.  The SSD backward kernel (K5) and its plain version are held to
 the same math in f64 as ``chip_smoke.py`` holds them: each
 within 2e-2 + 2e-2|f64| on dx in bf16 and, on the f32 outputs, within
 1e-3 + 1e-3|f64| plus 1e-4 of the largest |f64| in the output's (batch,
@@ -36,6 +41,7 @@ CTA cap, on both of its paths.  K5 gives the same bits on two runs.
 import numpy as np
 import pytest
 import torch
+from _ssd_split import fwd_exact, fwd_share, rising_inputs
 
 from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.kernels import flash_attention as fa
@@ -138,6 +144,10 @@ SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 SSD_GRID = [  # (L, H, P, N, chunk): the reference's grid, Q < chunk, ragged
     (64, 2, 16, 16, 16), (128, 4, 32, 32, 32), (96, 2, 16, 8, 32),
     (100, 3, 64, 128, 256), (300, 2, 64, 64, 256), (200, 2, 128, 256, 128)]
+# the models' chunk shapes at a small batch: Q 256, P 64, N 128 (mamba2-1.3b)
+# and 64 (zamba2-1.2b), H 4, one chunk and two; K4 also at H 12 (a head
+# block of 8 and one of 4)
+MODEL_CHUNKS = [(L, 4, 64, N, 256) for N in (128, 64) for L in (256, 512)]
 
 
 def _ssd_inputs(device, L, H, P, N, seed, broadcast=False,
@@ -167,7 +177,8 @@ def _chunks(t, Q):
 
 @pytest.mark.parametrize("broadcast", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,H,P,N,chunk", SSD_GRID)
+@pytest.mark.parametrize("L,H,P,N,chunk", SSD_GRID + MODEL_CHUNKS
+                         + [(512, 12, 64, 128, 256)])
 def test_ssd_chunk_kernel_matches_plain(cuda_device, L, H, P, N, chunk,
                                         dtype, broadcast):
     x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, L, H, P, N, 6, broadcast,
@@ -188,6 +199,85 @@ def test_ssd_chunk_kernel_matches_plain(cuda_device, L, H, P, N, chunk,
         assert g.shape == w.shape
         np.testing.assert_allclose(g.float().cpu().numpy(),
                                    w.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_gives_the_same_bits_twice(cuda_device, dtype,
+                                                    broadcast):
+    """No float atomics: each output is summed by one CTA in a fixed order,
+    so two runs on the same inputs give identical bits (mamba2-1.3b's chunk
+    shape, two chunks)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 512, 4, 64, 128, 17,
+                                   broadcast, dtype)
+    args = [_chunks(t, 256) for t in (x, dt)] + [A] \
+        + [_chunks(t, 256) for t in (Bm, Cm)]
+    first = ssd.ssd_chunk(*args)
+    second = ssd.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_where_cs_rises(cuda_device, dtype):
+    """Outside the precondition of K4's factorization exp(cs_i - cs_j) =
+    a_i b_j (cs falls: dt * A <= 0): heads 1, 2 and 3 have dt < 0 on a
+    stretch of rows, so cs rises there.  The kernel checks each head and
+    computes such a head entry by entry, so it still holds its plain
+    version at the same tolerance (mamba2-1.3b's chunk shape; the stretches
+    raise cs by under 2, so y and the states keep the size the absolute
+    part of the tolerance is meant for)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 512, 4, 64, 128, 18, True,
+                                   dtype)
+    dt = dt.clone()
+    for h, (lo, hi) in ((1, (100, 140)), (2, (0, 30)), (3, (300, 400))):
+        dt[:, lo:hi, h] *= -0.05
+    args = [_chunks(t, 256) for t in (x, dt)] + [A] \
+        + [_chunks(t, 256) for t in (Bm, Cm)]
+    assert (args[1].float() * A > 0).any()
+    got = ssd.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    want = ssd.ssd_chunk_plain(*args)
+    f32_tol = SSD_TOL[torch.float32]
+    for g, w, tol in zip(got, want, (SSD_TOL[dtype], f32_tol, f32_tol)):
+        assert torch.isfinite(w).all()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_where_cs_rises_over_the_chunk(cuda_device, dtype):
+    """A > 0 on heads 1 and 3 (the CPU precision test's inputs,
+    ``_ssd_split.rising_inputs``: B 2, nc 2, mamba2-1.3b's chunk shape, B/C
+    shared by the heads), so cs rises over the whole chunk and the kernel
+    computes those heads entry by entry.  Against the same math in f64:
+    every output is finite, the states and gamma hold 1e-3 and y in bf16
+    2e-2.  y from f32 inputs shows the scheme's documented limit: it misses
+    1e-3 (the emulation of the scheme reaches 1.25 times it at these inputs)
+    but stays within twice it, where the plain f32 version holds it."""
+    args = rising_inputs(dtype)
+    exact = fwd_exact(*args)
+
+    def on_card(t):   # the head broadcast of B and C kept as a stride-0 view
+        if t.dim() == 5 and t.stride(3) == 0:
+            return t[:, :, :, :1].to(cuda_device).expand(t.shape)
+        return t.to(cuda_device)
+
+    card = [on_card(t) for t in args]
+    assert card[3].stride(3) == 0
+    got = [g.cpu() for g in ssd.ssd_chunk(*card)]
+    assert all(torch.isfinite(g).all() for g in got)
+    assert fwd_share((exact[0].to(dtype), got[1], got[2]), exact, dtype) <= 1
+    y_share = fwd_share((got[0], exact[1], exact[2]), exact, dtype)
+    if dtype == torch.bfloat16:
+        assert y_share <= 1
+    else:
+        assert 1 < y_share <= 2
+        assert fwd_share(ssd.ssd_chunk_plain(*args), exact, dtype) <= 1
 
 
 @pytest.mark.parametrize("L,H,P,N,chunk", SSD_GRID[:3])
@@ -249,8 +339,7 @@ def test_reduced_serve_through_ssd_kernel_matches_chunked(cuda_device, arch):
 # then P 128, N 256 (both column parts of dB), and the models' chunk shapes
 # at a small batch: Q 256, P 64, N 128 (mamba2-1.3b) and 64 (zamba2-1.2b),
 # H 4, one chunk and two
-BWD_GRID = SSD_GRID + [(48, 3, 8, 16, 48)] + [
-    (L, 4, 64, N, 256) for N in (128, 64) for L in (256, 512)]
+BWD_GRID = SSD_GRID + [(48, 3, 8, 16, 48)] + MODEL_CHUNKS
 
 
 @pytest.mark.parametrize("broadcast", [False, True])

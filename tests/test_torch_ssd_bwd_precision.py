@@ -22,44 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from _ssd_split import (inputs, one, one_torch_thread,  # noqa: F401
+                        prod as prod_tc, split as _split, worst_share)
 from repro_torch.kernels import ssd_scan as ssd
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _inputs(seed, dtype, B=1, nc=2, Q=256, H=3, P=64, N=128, shared=True):
-    """The reference test's distributions in the (B, nc, Q, H, .) layout:
-    x, dy ~ N(0,1), dt = softplus(N(0,1)), A = -exp(0.5 N(0,1)), B, C ~
-    0.5 N(0,1), shared by the heads or per head; dS, dg ~ N(0,1) in f32."""
-    rng = np.random.default_rng(seed)
-
-    def t(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-
-    x = t(B, nc, Q, H, P).to(dtype)
-    dt = torch.nn.functional.softplus(t(B, nc, Q, H)).to(dtype)
-    A = -torch.exp(0.5 * t(H))
-    heads = 1 if shared else H
-    Bm, Cm = ((0.5 * t(B, nc, Q, heads, N)).to(dtype).expand(B, nc, Q, H, N)
-              for _ in range(2))
-    dy = t(B, nc, Q, H, P).to(dtype)
-    return x, dt, A, Bm, Cm, dy, t(B, nc, H, N, P), t(B, nc, H)
-
-
-def _split(v):
-    hi = v.bfloat16().float()
-    return hi, (v - hi).bfloat16().float()
-
-
-def _one(a):
-    """a single rounding to bf16 in place of the hi/lo split"""
-    return a.bfloat16().float(), torch.zeros_like(a)
+def _inputs(seed, dtype, **shape):
+    """x, dt, A, B, C (the reference test's distributions) and dy, dS, dg"""
+    return inputs(seed, dtype, cotangents=True, **shape)
 
 
 def _emulated(x, dt, A, Bm, Cm, dy, dstates, dgamma, split=_split):
@@ -72,14 +42,8 @@ def _emulated(x, dt, A, Bm, Cm, dy, dstates, dgamma, split=_split):
     def prod(a, b, a_split, b_split):
         """a @ b as K5 runs it: a split operand (hi, lo) against a bf16 one,
         or, with f32 inputs, both split and hi·hi + hi·lo + lo·hi."""
-        a_hi, a_lo = split(a) if a_split else (a, None)
-        b_hi, b_lo = _split(b) if b_split else (b, None)
-        out = a_hi @ b_hi
-        if a_lo is not None:
-            out = out + a_lo @ b_hi
-        if b_lo is not None:
-            out = out + a_hi @ b_lo
-        return out
+        return prod_tc(a, b, split if a_split else None,
+                       _split if b_split else None)
 
     Af = A.float()[:, None]
     ds = dstates.float()
@@ -123,17 +87,13 @@ def _emulated(x, dt, A, Bm, Cm, dy, dstates, dgamma, split=_split):
 
 def _share_of_tolerance(got, exact, dtype):
     """The largest |err| / allowed over K5's outputs (the cuda tests' rule)."""
-    worst = 0.0
-    for i, (g, e) in enumerate(zip(got, exact)):
-        g, e = g.double().numpy(), e.numpy()
+
+    def allowed(i, e):
         if i == 0 and dtype == torch.bfloat16:
-            allowed = 2e-2 * (1 + np.abs(e))
-        else:
-            group = {4: (0, 1), 1: (2,)}.get(i, (2, 4))   # head or cell
-            allowed = (1e-3 * (1 + np.abs(e))
-                       + 1e-4 * np.abs(e).max(group, keepdims=True))
-        worst = max(worst, float((np.abs(g - e) / allowed).max()))
-    return worst
+            return 2e-2 * (1 + np.abs(e))
+        group = {4: (0, 1), 1: (2,)}.get(i, (2, 4))   # head or cell
+        return 1e-3 * (1 + np.abs(e)) + 1e-4 * np.abs(e).max(group, keepdims=True)
+    return worst_share(got, exact, allowed)
 
 
 @pytest.mark.parametrize("shared", [True, False])
@@ -163,5 +123,5 @@ def test_single_bf16_rounding_of_m_and_v_does_not_hold():
     outside the tolerance at mamba2-1.3b's chunk shape."""
     args = _inputs(21, torch.bfloat16)
     exact = ssd.ssd_chunk_bwd_plain(*(t.double() for t in args))
-    assert _share_of_tolerance(_emulated(*args, split=_one), exact,
+    assert _share_of_tolerance(_emulated(*args, split=one), exact,
                                torch.bfloat16) > 1.0

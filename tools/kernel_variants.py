@@ -1,8 +1,8 @@
-"""Time one-change variants of the K1, K2, K3 and K5 CUDA sources against
-the committed sources on the card.
+"""Time one-change variants of the K1, K2, K3, K4 and K5 CUDA sources
+against the committed sources on the card.
 
     python3 tools/kernel_variants.py            # every variant
-    python3 tools/kernel_variants.py k2 k5      # those whose names start so
+    python3 tools/kernel_variants.py k4 k5      # those whose names start so
 
 Each variant is the committed source with one textual change (VARIANTS
 below; the script fails if a change no longer applies), built by ``nvcc``
@@ -17,7 +17,10 @@ bit) in f64 at twice the L2 (2^22 elements), about 3/4 of it (184 x 8192)
 and 2^26 elements (1.6 GB) at every CTA cap of the Figs. 4/5 sweep and the full grid, beside
 ``torch.add(a, b, alpha=3)``, each cap timed both behind a spin and by
 one replay of a CUDA graph of 20 launches (as the Figs. 4/5 sweep times
-it); K5 (bit for bit) at mamba2-1.3b's training
+it); K4 (bit for bit, or within its tolerance of the plain version where
+the variant changes the arithmetic) at mamba2-1.3b's prefill and training
+shapes and zamba2-1.2b's prefill shape (B 1 or 4, nc 8, Q 256, H 64, P 64,
+N 128 or 64, bf16, B/C broadcast); K5 (bit for bit) at mamba2-1.3b's training
 shape (B 4, nc 8, Q 256, H 64, P 64, N 128, bf16, B/C broadcast).  Needs a
 CUDA card; exits 1 without one.
 """
@@ -99,6 +102,39 @@ VARIANTS = {
         "      else\n"
         "        store_piece(y + e0 + static_cast<long long>(k) * kTriadThreads * P, r + k * P);")],
         "K2's f64 vector loads and stores with the evict-first (streaming) cache hint"),
+    "k4_three_stages": ("ssd_scan", [(
+        "static constexpr int XST = 4;", "static constexpr int XST = 3;")],
+        "x tiles in 3 stages a warpgroup instead of 4: two tiles load ahead, not three"),
+    "k4_no_overlap": ("ssd_scan", [
+        ("    wgmma_commit();\n    if (nxt.u < steps) form_m(nxt);",
+         "    wgmma_commit();\n    wgmma_wait<0>();\n    if (nxt.u < steps) form_m(nxt);"),
+        ("    wgmma_commit();\n    Walk nxt = cur;",
+         "    wgmma_commit();\n    wgmma_wait<0>();\n    Walk nxt = cur;")],
+        "each M x (B^T w x) product waited for at once: forming the next M (w x) does not "
+        "overlap it"),
+    "k4_heads4": ("ssd_scan", [(
+        "constexpr int kHeads = 8;", "constexpr int kHeads = 4;")],
+        "4 heads a CTA instead of 8: twice the CTAs, C.B^T formed twice as often"),
+    "k4_heads16": ("ssd_scan", [
+        ("constexpr int kHeads = 8;", "constexpr int kHeads = 16;"),
+        ("static constexpr int XST = 4;", "static constexpr int XST = 3;")],
+        "16 heads a CTA instead of 8 (3 x stages, for the shared memory): half the CTAs, "
+        "C.B^T formed half as often"),
+    "k4_s_per_head": ("ssd_scan", [(
+        "p.shared = H == 1 || (p.b_s[3] == 0 && p.c_s[3] == 0);", "p.shared = H == 1;")],
+        "B/C shared by the heads taken as per-head: C.B^T (and B's columns) for each head, "
+        "one warpgroup running"),
+    "k4_no_factor": ("ssd_scan", [(
+        "if (jt < it && i0 + kTile <= Q && falls[hl]) {", "if (false) {")],
+        "exp(cs_i - cs_j) for every entry, not a_i b_j below the diagonal tile"),
+    "k4_no_bulk": ("ssd_scan", [(
+        "  if (aligned && stride == cols && cols * sizeof(T) == kRow) {", "  if (false) {")],
+        "the states leave as 16-byte row pieces from every thread, as y does, not by one "
+        "bulk copy"),
+    "k4_four_s_tiles": ("ssd_scan", [(
+        "const int jn = one_batch ? it + 1 : 4;", "const int jn = 4;")],
+        "every row CTA forms 4 tiles of C.B^T (those past its tile it on tile 0, not "
+        "stored), not it + 1"),
     "k5_one_stage": ("ssd_scan_bwd", [(
         "static constexpr int STAGES = kSplit ? 1 : 2;",
         "static constexpr int STAGES = 1;")],
@@ -188,6 +224,16 @@ def main() -> int:
             raise RuntimeError(f"triad launch failed ({err})")
         return y
 
+    def ssd_fwd(lib, args, outs):
+        x, dt, A, Bm, Cm = args
+        B, nc, Q, H, P = x.shape
+        strides = (ctypes.c_longlong * 16)(*(s for t in (x, dt, Bm, Cm) for s in t.stride()[:4]))
+        err = lib.repro_ssd_chunk_fwd(*(t.data_ptr() for t in (*args, *outs)), 1, B, nc, Q, H, P,
+                                      Bm.shape[-1], strides, stream_t)
+        if err:
+            raise RuntimeError(f"ssd_chunk launch failed ({err})")
+        return outs
+
     def ssd_bwd(lib, args, outs, scratch):
         x, dt, A, Bm, Cm, dy, ds, dg = args
         B, nc, Q, H, P = x.shape
@@ -241,6 +287,35 @@ def main() -> int:
                               f"{ta:.5f} ms ({gbs / ta:.0f} GB/s), variant {tb:.5f} ms "
                               f"({gbs / tb:.0f} GB/s) ({tb / ta - 1:+.1%})")
                 del a, b, y, want
+        elif name.startswith("k4"):
+            from repro_torch.kernels import ssd_scan as ssd
+            for label, B, N in (("mamba2-1.3b prefill", 1, 128), ("mamba2-1.3b training", 4, 128),
+                                ("zamba2-1.2b prefill", 1, 64)):
+                nc, Q, H, P = 8, 256, 64, 64
+                x = torch.randn((B, nc, Q, H, P), generator=gen, device=dev).bfloat16()
+                dt = torch.nn.functional.softplus(torch.randn((B, nc, Q, H), generator=gen,
+                                                              device=dev)).bfloat16()
+                A = -torch.exp(0.5 * torch.randn(H, generator=gen, device=dev))
+                Bm, Cm = ((0.5 * torch.randn((B, nc, Q, 1, N), generator=gen, device=dev))
+                          .bfloat16().expand(B, nc, Q, H, N) for _ in range(2))
+                args = (x, dt, A, Bm, Cm)
+                want = ssd.ssd_chunk(*args)
+                plain = ssd.ssd_chunk_plain(*args)
+                outs = tuple(torch.empty_like(t) for t in want)
+                for lib in (base, var):
+                    got = ssd_fwd(lib, args, outs)
+                    if name == "k4_no_factor":   # other arithmetic: K4's tolerance
+                        for g, w, tol in zip(got, plain, (2e-2, 1e-3, 1e-3)):
+                            if ((g.float() - w.float()).abs()
+                                    > tol + tol * w.float().abs()).any():
+                                raise SystemExit(f"kernel_variants: {name} disagrees with plain")
+                    elif not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise SystemExit(f"kernel_variants: {name} differs from ssd_chunk")
+                ta, tb = in_turns(lambda _: ssd_fwd(base, args, outs),
+                                  lambda _: ssd_fwd(var, args, outs))
+                print(f"[variant] {name} {label} B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16 "
+                      f"broadcast: committed {ta:.4f} ms, variant {tb:.4f} ms ({tb / ta - 1:+.1%})")
+                del x, dt, Bm, Cm, args, want, plain, outs
         elif name.startswith("k5"):
             from repro_torch.kernels import ssd_scan as ssd
             B, nc, Q, H, P, N = 4, 8, 256, 64, 64, 128
