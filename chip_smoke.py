@@ -98,7 +98,19 @@ Phases, in order; any failure exits non-zero and prints no result:
     version, one PyTorch call where one computes the function, and the
     bound (bytes over 3.35 TB/s, f64 flops counted in
     the SASS over 34 TFLOP/s); each output at these shapes held against the
-    plain version's, as in phase 3.
+    plain version's, as in phase 3;
+19. Fig. 3 at the scale of a model step: the training steps of phases 11
+    and 12 and the 2048-token prefills of phases 4, 7 and 8 captured at
+    full width as ATen graphs (``core.aten.capture`` over fake tensors:
+    nothing runs, the launch counts must not move, and at most 1 MiB of
+    device memory may be taken, none of it the model's), the prefills on
+    the kernel path and on the plain path (``blocked``, ``chunked``; its
+    prefill timed here); each capture's
+    kernel custom ops must equal the launches its phase counted a step or a
+    request (K4 96 and K5 48 for mamba2-1.3b's step, ...); each is
+    simulated against the H100 fitted in phase 15 with both engines and
+    printed beside the measured kernel time and host clock, with the
+    differences and the seconds that capture and simulation took.
 
 After each model's serving phase, the profiler's kernel time of one prefill
 of its longest prompt (with each kernel's share) and of 8 decode steps, beside
@@ -478,7 +490,7 @@ def calibrate_h100(dev) -> dict:
     if launches["stream_triad"] != want_k2 or not all(launches.values()):
         fail(f"calibration launches {launches}")
     return {"fitted": fitted, "tables": tables, "triad": triad,
-            "launches": launches}
+            "launches": launches}, hw
 
 
 F64_FLOPS = {"DFMA": 2, "DADD": 1, "DMUL": 1}   # flops per SASS instruction
@@ -720,6 +732,191 @@ def time_stream(dev, lib_path) -> dict:
           f"{(t1 - 3 * 8 * n1 / rate * 1e3) * 1e3:.2f} us a launch")
     return {"k1": rows, "k2": k2, "k1_err": k1_err, "k1_used": k1_used,
             "k2_err": k2_err, "k2_used": k2_used}
+
+
+# phase 19: each capture's kernel custom ops, by launch counter
+CUSTOM_OPS = {"flash_attention": "flash_attention",
+              "ssd_scan": "ssd_chunk_fwd", "ssd_scan_bwd": "ssd_chunk_bwd"}
+# the device memory a capture may take: none of the model's, only the
+# 4-byte constants that a step makes from Python numbers (the loss's aux
+# term) and the fake-tensor mode's context, in 512-byte blocks (1.5 KiB
+# seen on the card)
+CAPTURE_MEM_BYTES = 1 << 20
+
+
+def fig3_steps(dev, hw, servings, trainings, timed, read_launches) -> list:
+    """Phase 19, Fig. 3 at the scale of a model step: capture the two
+    training steps and the three 2048-token prefills at full width (fake
+    tensors: nothing runs on the card, none of the model's memory is
+    taken), the prefills
+    also on the plain path; hold each capture's custom ops against the
+    launches its phase counted, simulate it against the fitted ``hw`` with
+    both engines, and print the simulated beside the measured times: the
+    profiler's kernel time and the host clock of the phase's traced step or
+    prefill (for the plain path, measured here by ``timed``)."""
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
+    from repro_torch.core import aten
+    from repro_torch.core.simulate import simulate
+    from repro_torch.models import params as pr
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.trainer import make_train_step
+
+    launches_before = read_launches()
+
+    def custom_calls(gm):
+        got = dict.fromkeys(CUSTOM_OPS, 0)
+        for n in gm.graph.nodes:
+            if getattr(n.target, "namespace", None) == "repro_torch":
+                name = n.target.overloadpacket.__name__
+                got[next(k for k, v in CUSTOM_OPS.items() if v == name)] += 1
+        return got
+
+    def fake_params(model, dtype):
+        return pr.tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
+                                                 device=dev),
+                           model.param_specs())
+
+    def prefill_of(model):
+        def prefill(params, batch):
+            with torch.no_grad():
+                return model.prefill_fn(params, batch)
+        return prefill
+
+    def one(label, fn, make_args, want, measured):
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        with FakeTensorMode():
+            args = make_args()
+        t0 = time.perf_counter()
+        gm = aten.capture(fn, *args)
+        t_capture = time.perf_counter() - t0
+        taken = torch.cuda.max_memory_allocated() - mem0 if on_card else 0
+        if taken > CAPTURE_MEM_BYTES:
+            fail(f"{label}: the capture took {taken} B of device memory")
+        calls = custom_calls(gm)
+        print(f"[fig3-step] {label}: captured {len(gm.graph.nodes)} graph "
+              f"nodes in {t_capture:.1f} s, {taken} B of device memory at "
+              f"its peak; kernel custom calls {calls} (want {want})")
+        if calls != want:
+            fail(f"{label}: the capture holds kernel calls {calls}, the "
+                 f"phase launched {want}")
+        t0 = time.perf_counter()
+        rep = simulate(gm, hw=hw, compute_dtype="bf16", engine="both",
+                       title=label)
+        t_sim = time.perf_counter() - t0
+        del gm
+        classes = rep.program.by_class()
+        occ_ms, sched_ms = rep.engine.t_est * 1e3, rep.schedule.t_est * 1e3
+        kernel_ms, host_ms = measured
+        row = {"capture": label, "ops": len(rep.program.ops),
+               "custom_calls": calls,
+               "gflop": {k: v["flops"] / 1e9 for k, v in classes.items()},
+               "gb": {k: v["bytes"] / 1e9 for k, v in classes.items()},
+               "occupancy_ms": occ_ms, "schedule_ms": sched_ms,
+               "kernel_ms": kernel_ms, "host_ms": host_ms,
+               "capture_s": t_capture, "simulate_s": t_sim}
+        diffs = []
+        for sim_key, sim_ms in (("occupancy", occ_ms), ("schedule", sched_ms)):
+            for meas_key, meas_ms in (("kernel", kernel_ms), ("host", host_ms)):
+                d = (100 * (sim_ms - meas_ms) / meas_ms
+                     if meas_ms else None)
+                row[f"{sim_key}_vs_{meas_key}_pct"] = d
+                diffs.append(f"{sim_key} vs {meas_key} "
+                             + ("not measured" if d is None else f"{d:+.1f} %"))
+        print(f"[fig3-step] {label}: {row['ops']} ops; GFLOP "
+              + ", ".join(f"{k} {v:.2f}" for k, v in row["gflop"].items())
+              + "; GB " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in row["gb"].items())
+              + f"; simulated {occ_ms:.2f} ms (occupancy), {sched_ms:.2f} ms "
+              f"(schedule); measured "
+              + ("not measured" if kernel_ms is None else
+                 f"{kernel_ms:.2f} ms kernel time, {host_ms:.2f} ms host "
+                 f"clock")
+              + "; " + ", ".join(diffs)
+              + f"; capture {t_capture:.1f} s, simulate {t_sim:.1f} s")
+        return row
+
+    def traced(record, kernel_key, host_key):
+        tr = record["trace"]
+        if not isinstance(tr, dict):
+            return None, None
+        return tr[kernel_key], tr[host_key]
+
+    rows = []
+    # the training steps: RunConfig's defaults, the kernel path of phases
+    # 11 and 12 (K4 forward and its recompute, K5; attention blocked)
+    for record, arch in zip(trainings, (SSM_ARCH, HYBRID_ARCH)):
+        cfg = ARCHS[arch]
+        batch = record["batch"]
+        run = RunConfig(model=cfg, shape=ShapeConfig("smoke", TRAIN_SEQ,
+                                                     batch, "train"))
+        model = build_model(cfg, ssd_impl="kernel")
+        step, opt_init = make_train_step(model, run)
+        dtype = getattr(torch, run.param_dtype)
+
+        def args(model=model, opt_init=opt_init, dtype=dtype, batch=batch):
+            params = fake_params(model, dtype)
+            return (params, opt_init(params),
+                    {"tokens": torch.zeros((batch, TRAIN_SEQ),
+                                           dtype=torch.long, device=dev)})
+        want = {k: v // record["steps"] for k, v in record["launches"].items()}
+        if want != {"flash_attention": 0, "ssd_scan": 2 * cfg.n_layers,
+                    "ssd_scan_bwd": cfg.n_layers}:
+            fail(f"{arch}: phase launches {record['launches']}")
+        rows.append(one(f"{arch} training step {batch} x {TRAIN_SEQ}, kernel "
+                        f"path", step, args, want,
+                        traced(record, "kernel_ms", "host_ms")))
+        gc.collect()
+    # the 2048-token prefills of phases 4, 7 and 8, on the kernel path
+    # (flash, K4) and on the plain path (blocked, chunked)
+    for record in servings:
+        arch = record["arch"]
+        cfg = ARCHS[arch]
+        n = max(record["prompt_tokens"])
+        n_req = record["requests"]
+        want = {k: v // n_req for k, v in record["launches"].items()}
+        n_inv = (len(range(0, cfg.n_layers, cfg.shared_attn_every))
+                 if cfg.family == "hybrid" else cfg.n_layers)
+        expect = {"flash_attention": n_inv if cfg.family != "ssm" else 0,
+                  "ssd_scan": cfg.n_layers if cfg.family != "dense" else 0,
+                  "ssd_scan_bwd": 0}
+        if want != expect:
+            fail(f"{arch}: serving launches {record['launches']}, want "
+                 f"{expect} a request")
+
+        def args(n=n):
+            return ({"tokens": torch.zeros((1, n), dtype=torch.long,
+                                           device=dev)},)
+        for path, attn, ssd_impl in (("kernel", "flash", "kernel"),
+                                     ("plain", "blocked", "chunked")):
+            model = build_model(cfg, attn_impl=attn, ssd_impl=ssd_impl)
+            if path == "kernel":
+                measured = traced(record, "prefill_kernel_ms",
+                                  "prefill_host_ms")
+                calls = want
+            else:
+                measured = timed(model, n)
+                calls = dict.fromkeys(CUSTOM_OPS, 0)
+            rows.append(one(
+                f"{arch} prefill {n}, {path} path", prefill_of(model),
+                lambda model=model: (fake_params(model, torch.bfloat16),
+                                     *args()), calls, measured))
+            gc.collect()
+    if read_launches() != launches_before:
+        fail(f"the captures moved the launch counters: {launches_before} -> "
+             f"{read_launches()}")
+    diffs = [abs(r["occupancy_vs_kernel_pct"]) for r in rows
+             if r["occupancy_vs_kernel_pct"] is not None]
+    print(f"[fig3-step] diff % = 100 (simulated - measured) / measured; "
+          f"median |diff| of the occupancy estimate from the kernel time over "
+          f"{len(diffs)} captures: {np.median(diffs):.1f} %")
+    return rows
 
 
 def main() -> int:
@@ -1622,10 +1819,35 @@ def main() -> int:
     del x, dt, A, Bm, Cm, args, dy, dstates, dgamma
     gc.collect()
     torch.cuda.empty_cache()
-    calibration = calibrate_h100(dev)
+    calibration, fitted_h100 = calibrate_h100(dev)
     # 18. K1 and K2 timing beside their bounds, plain versions, torch calls
     stream_times = time_stream(dev, next(b.path for b in builds
                                          if b.name == "stream"))
+
+    # 19. Fig. 3 at the scale of a model step: the captured steps and
+    # prefills simulated against the fitted H100, beside their phases' times
+    def plain_prefill_ms(model, n):
+        """(kernel ms, host ms) of one n-token prefill on ``model``'s path
+        with the serving phases' seeded bf16 weights, after a warm-up."""
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, model.cfg.vocab_size, size=(1, n))).to(dev)
+
+        def prefill():
+            model.prefill_fn(params, {"tokens": toks})
+
+        with torch.inference_mode():
+            prefill()
+            wall = host_seconds(prefill)
+            busy, _, _ = kernel_seconds(prefill)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (busy * 1e3, wall * 1e3) if busy > 0 else (None, None)
+
+    step_sims = fig3_steps(dev, fitted_h100, servings, trainings,
+                           plain_prefill_ms, read_launches)
 
     if failures:
         fail("; ".join(failures))
@@ -1634,6 +1856,7 @@ def main() -> int:
     for record in trainings:
         print(json.dumps({"training": record}))
     print(json.dumps({"calibration": calibration}))
+    print(json.dumps({"fig3_steps": step_sims}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in servings + trainings}
                for k in KERNELS}
     print(json.dumps({"kernels": [{

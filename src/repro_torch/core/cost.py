@@ -98,7 +98,9 @@ def cost_op(o: OpStat, hw: HardwareSpec, ici_bw: float,
     """Per-op port assignment + per-instance times.  ``traffic`` is the
     hierarchy-routed memory traffic from ``cost_program``; when absent the
     op is routed standalone (working-set rule only).  Returns None for ops
-    the cost model does not charge."""
+    the cost model does not charge.  ``compute_dtype`` only de-normalizes
+    f32 ops (DESIGN.md §7): ``cost_program`` passes None for a program with
+    exact dtypes."""
     denorm = compute_dtype in ("bf16", "f16")
 
     def eff_dtype() -> str:
@@ -189,7 +191,10 @@ def cost_program(prog: Program, hw: HardwareSpec,
                  ) -> List[Optional[OpTime]]:
     """Cost every op once, with hierarchy routing done in program context
     (reuse distances over the def-use edges).  Both engines consume this
-    list; ``simulate(engine="both")`` computes it exactly once."""
+    list; ``simulate(engine="both")`` computes it exactly once.  A
+    program with exact dtypes (``Program.exact_dtypes``) is not
+    de-normalized (DESIGN.md §7): its f32 ops cost at f32."""
+    compute_dtype = prog.denorm_dtype(compute_dtype)
     ici_bw = links_per_collective * hw.ici_bw_per_link
     traffic = route_program(prog, hw.memory_hierarchy(), compute_dtype,
                             warm_caches=hw.warm_caches)
@@ -272,6 +277,7 @@ def cost_program_batch(prog: Program, grid: SpecGrid,
     order, ``(base + vpu_extra) + trans`` keeps its association, and the
     collective guard matches the fixed scalar path.
     """
+    compute_dtype = prog.denorm_dtype(compute_dtype)
     S = grid.S
     n = len(prog.ops)
     L = len(grid.level_names)

@@ -1,7 +1,8 @@
 """Post-SPMD HLO text parser -> per-op cost records.
 
 A copy of ``repro.core.hlo`` (no JAX; the port's tests hold it bit for bit
-against the reference).
+against the reference), plus ``Program.exact_dtypes``, which only the ATen
+frontend (``core.aten``) sets.
 
 The simulator consumes ``compiled.as_text()`` — the *partitioned* module, so
 every shape is per-device and every inter-device transfer is an explicit
@@ -23,7 +24,7 @@ import math
 import re
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import ClassVar, Dict, List, Optional, Tuple
 
 DTYPE_BYTES = {
     "pred": 1, "s4": 0.5, "u4": 0.5, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
@@ -148,6 +149,17 @@ class Program:
     ops: List[OpStat]
     entry: str
     n_partitions: int
+    # True when every op's dtype is the one the device computes in, as in
+    # an ATen graph (``core.aten.parse_graph`` sets it on its programs);
+    # False for XLA:CPU HLO, whose f32 ops the cost model de-normalizes to
+    # ``compute_dtype`` (DESIGN.md §7).  Not a dataclass field, so parsed
+    # HLO programs stay equal to the reference's.
+    exact_dtypes: ClassVar[bool] = False
+
+    def denorm_dtype(self, compute_dtype: Optional[str]) -> Optional[str]:
+        """The ``compute_dtype`` that the §7 de-normalization sees: None
+        for a program with exact dtypes, so its f32 ops cost at f32."""
+        return None if self.exact_dtypes else compute_dtype
 
     # ---- aggregates
     def total(self, attr: str) -> float:
@@ -167,14 +179,15 @@ class Program:
 
     def bytes_normalized(self, compute_dtype: str) -> float:
         """Bytes with XLA:CPU float-normalization inverted: f32 ops count at
-        16-bit width when the model computes in bf16/f16 (see engine)."""
-        if compute_dtype not in ("bf16", "f16"):
+        16-bit width when the model computes in bf16/f16 (see engine);
+        exact dtypes are not de-normalized."""
+        if self.denorm_dtype(compute_dtype) not in ("bf16", "f16"):
             return self.bytes_accessed
         return sum((0.5 if o.dtype == "f32" else 1.0)
                    * o.bytes_accessed * o.count for o in self.ops)
 
     def comm_normalized(self, compute_dtype: str) -> float:
-        if compute_dtype not in ("bf16", "f16"):
+        if self.denorm_dtype(compute_dtype) not in ("bf16", "f16"):
             return self.comm_bytes
         return sum((0.5 if o.dtype == "f32" else 1.0)
                    * o.comm_bytes * o.count for o in self.ops)

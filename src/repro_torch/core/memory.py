@@ -162,8 +162,10 @@ def _route_edges(prog: Program, compute_dtype: Optional[str]):
     edge shares, and each edge's reuse distance.  None of these depend on
     level capacities or bandwidths, so the spec-batched router
     (:func:`route_program_batch`) shares them across the whole grid.
-    Returns ``(rb, wb, dst, e_eff, dist)``."""
+    Returns ``(rb, wb, dst, e_eff, dist)``.  A program with exact dtypes
+    is not de-normalized (``Program.denorm_dtype``)."""
     n = len(prog.ops)
+    compute_dtype = prog.denorm_dtype(compute_dtype)
     scales = [_dtype_scale(o, compute_dtype) for o in prog.ops]
     rws = [_split_rw(o, scales[i]) for i, o in enumerate(prog.ops)]
     rb = np.array([r for r, _ in rws], dtype=np.float64)

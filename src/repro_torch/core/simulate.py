@@ -3,11 +3,14 @@
     report = simulate(hlo_text, hw=H100, compute_dtype="f32", engine="both")
     print(report.pa)
 
-A copy of ``repro.core.simulate`` without JAX: the input is HLO text (or
-an already parsed or hand-built :class:`~.hlo.Program`), never a jax
-``Compiled`` object, so ``xla_cost_analysis`` and ``memory_analysis`` are
-``None``.  The node engine (``engine="node"``, ROADMAP queue 1 item 9) and
-sampled estimation (``sampling=``, item 10) are not ported yet and raise.
+A copy of ``repro.core.simulate`` without JAX: the input is HLO text, an
+already parsed or hand-built :class:`~.hlo.Program`, or a PyTorch step
+captured as an ATen graph (``core.aten.capture``: a ``torch.fx.GraphModule``
+goes through ``aten.parse_graph`` as the reference's jax ``Compiled`` goes
+through its HLO text), so ``xla_cost_analysis`` and ``memory_analysis``
+are ``None``.  The node engine (``engine="node"``, ROADMAP queue 1 item 9)
+and sampled estimation (``sampling=``, item 10) are not ported yet and
+raise.
 
 This is the paper's end-to-end flow: application binary -> simulator ->
 execution-cycle estimate + PA data, before the target hardware exists.
@@ -145,7 +148,7 @@ class SimReport:
         return json.dumps(d, indent=1, sort_keys=True)
 
 
-def simulate(program: Union[str, Program], hw: HardwareSpec = TPU_V5E,
+def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
              n_chips: int = 1, model_flops_global: float = 0.0,
              compute_dtype: str = "bf16", title: str = "",
              engine: str = "occupancy", n_cores: int = 1,
@@ -156,9 +159,11 @@ def simulate(program: Union[str, Program], hw: HardwareSpec = TPU_V5E,
     (application binary -> execution-time estimate + PA data, DESIGN.md §2).
 
     ``program`` is HLO text (parsed once under the DESIGN.md §9
-    byte-accounting rules) or a :class:`~.hlo.Program`.  It is costed once
-    through the unified cost pipeline and memory hierarchy (DESIGN.md
-    §3/§12); every engine shares that costed list.
+    byte-accounting rules), a :class:`~.hlo.Program`, or a captured
+    ``torch.fx.GraphModule`` (parsed by ``aten.parse_graph`` under its
+    restatement of those rules for eager ATen, with exact dtypes).  It is
+    costed once through the unified cost pipeline and memory hierarchy
+    (DESIGN.md §3/§12); every engine shares that costed list.
 
     ``engine`` selects the overlap model:
       * ``"occupancy"`` (default) — the flat multi-port sum with assumed
@@ -188,7 +193,13 @@ def simulate(program: Union[str, Program], hw: HardwareSpec = TPU_V5E,
         raise NotImplementedError(
             "simulate(sampling=...): sampled estimation is not ported yet "
             "(ROADMAP queue 1 item 10)")
-    prog = parse_program(program) if isinstance(program, str) else program
+    if isinstance(program, str):
+        prog = parse_program(program)
+    elif isinstance(program, Program):
+        prog = program
+    else:
+        from .aten import parse_graph      # imports torch
+        prog = parse_graph(program)
     # one costing pass (hierarchy routing included); both engines share it
     costed = cost_program(prog, hw, compute_dtype=compute_dtype)
     eng = simulate_program(prog, hw, compute_dtype=compute_dtype,

@@ -10,11 +10,16 @@ function live here:
   PyTorch with the same -1e30 mask semantics, used for tensors on the CPU and
   as the kernel's yardstick on the card.
 
-Dispatch is by the tensors' device and never falls back: a CUDA tensor
-launches the kernel or raises.  ``flash_attention_bhsd.launches`` counts
-kernel launches.  The kernel has no backward (nor has the reference's):
-on CUDA, a call that would need a gradient raises instead of returning a
-result without one.
+Both are the two implementations of one ``torch.library`` custom op,
+``torch.ops.repro_torch.flash_attention``, so that a step captured with
+``make_fx`` (``core.aten``) keeps each call as one node; its fake
+implementation gives the output's shape, dtype and strides.  Dispatch is
+by the tensors' device and never falls back: a CUDA tensor launches the
+kernel or raises.  ``flash_attention_bhsd.launches`` counts kernel
+launches.  The kernel has no backward (nor has the reference's): on CUDA,
+a call that would need a gradient raises instead of returning a result
+without one; on the CPU the op's backward differentiates the plain
+version.
 """
 from __future__ import annotations
 
@@ -106,6 +111,74 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _out_like(q: torch.Tensor) -> torch.Tensor:
+    """The output of q's device: on CUDA laid out (B, Sq, H, D) in memory,
+    as the kernel writes it; on the CPU contiguous, as the plain version
+    returns it."""
+    B, H, Sq, D = q.shape
+    if q.device.type == "cuda":
+        return torch.empty((B, Sq, H, D), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+    return torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, block_q: int, block_k: int) -> torch.Tensor:
+    """K3 as one op: the plain version on the CPU (below), the kernel on
+    CUDA (``_flash_cuda``)."""
+    return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                 block_k=block_k)
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, causal, block_q, block_k):
+    D = q.shape[3]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, "
+                         f"not {D}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the last dimension of q, k and v must be contiguous")
+    out = _out_like(q)
+    if q.dtype == torch.bfloat16 and any(      # 16-byte vector loads
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v, out)):
+        raise ValueError("bf16 q, k, v must be 16-byte aligned with "
+                         "strides in multiples of 8 elements")
+    _launch(q, k, v, out, causal)
+    return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, block_q, block_k):
+    return _out_like(q)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, block_q, block_k = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.args = (causal, block_q, block_k)
+
+
+def _flash_backward(ctx, grad):
+    """The CPU's gradient: autograd through the plain version.  CUDA calls
+    never get here (``flash_attention_bhsd`` refuses them a gradient)."""
+    q, k, v = ctx.saved_tensors
+    if q.device.type != "cpu":
+        raise RuntimeError("the flash attention kernel (K3) has no backward")
+    causal, block_q, block_k = ctx.args
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, block_q=block_q,
+                                    block_k=block_k)
+        grads = torch.autograd.grad(out, leaves, grad)
+    return (*grads, None, None, None)
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
                          block_k: int = 128) -> torch.Tensor:
@@ -121,34 +194,17 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v)
     device = _device_type(q)
-    if device == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
-                                     block_k=block_k)
-    if device != "cuda":
+    if device not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        # the kernel's output has no grad_fn: a loss through it would lose
-        # this term's gradient silently
+    if device == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        # the kernel has no backward: refuse the gradient here, not when a
+        # backward reaches it
         raise RuntimeError(
             "the flash attention kernel (K3) has no backward, as in the "
             "reference; train with attn_impl='blocked', or run it under "
             "torch.no_grad()")
-    D = q.shape[3]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, "
-                         f"not {D}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("the last dimension of q, k and v must be contiguous")
-    B, H, Sq, _ = q.shape
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    if q.dtype == torch.bfloat16 and any(      # 16-byte vector loads
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in (q, k, v, out)):
-        raise ValueError("bf16 q, k, v must be 16-byte aligned with "
-                         "strides in multiples of 8 elements")
-    _launch(q, k, v, out, causal)
-    return out
+    return _flash_op(q, k, v, causal, block_q, block_k)
 
 
 flash_attention_bhsd.launches = 0

@@ -17,15 +17,23 @@ state ``sum_j exp(cs_last - cs_j) dt_j B_j (x) x_j`` and its decay
 Both follow the reference's kernel path, not its chunked jnp path
 (``models.ssm.ssd_chunked``), which rounds M to x's dtype in bf16.  Dispatch
 is by the tensors' device and never falls back: a CUDA tensor launches the
-kernel or raises.  ``ssd_chunk.launches`` counts kernel launches.
+kernel or raises.  ``ssd_chunk.launches`` counts kernel launches.  The two
+versions are the two implementations of the ``torch.library`` custom op
+``torch.ops.repro_torch.ssd_chunk_fwd``, so that a step captured with
+``make_fx`` (``core.aten``) keeps each call as one node; its fake
+implementation gives the outputs' shapes, dtypes and strides.
 
 ``ssd_chunk`` is differentiable (the reference's custom VJP of
 ``ssd_chunks_flat``): its backward is K5, the counterpart of
 ``ssd_chunk_bwd_pallas``, again in two versions of one function, the CUDA
 kernel ``csrc/ssd_scan_bwd.cu`` for CUDA tensors and ``ssd_chunk_bwd_plain``
-for CPU tensors.  Autograd never differentiates the plain forward, so the
-CPU runs the same backward plumbing as the card.  ``ssd_chunk_bwd.launches``
-counts K5's launches (one per backward).
+for CPU tensors, the two implementations of the custom op
+``torch.ops.repro_torch.ssd_chunk_bwd``.  Autograd never differentiates the
+plain forward, so the CPU runs the same backward plumbing as the card.
+``ssd_chunk_bwd.launches`` counts K5's launches (one per backward).  The
+ops' outputs are fresh contiguous tensors on both devices; their inputs go
+in as they are, so a head-broadcast B or C reaches the kernels as a
+stride-0 view.
 """
 from __future__ import annotations
 
@@ -98,21 +106,42 @@ def _launch(x, dt, A, Bm, Cm, y, states, gamma) -> None:
 
 def _forward(x, dt, A, Bm, Cm):
     _check(x, dt, A, Bm, Cm)
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, dt, A, Bm, Cm)
-    _check_kernel_shapes(x, Bm, Cm)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SSD scan runs on cpu or cuda, not {x.device}")
+    return _ssd_fwd_op(x, dt, A, Bm, Cm)
+
+
+def _fwd_outputs(x, N: int):
     B, nc, Q, H, P = x.shape
-    N = Bm.shape[-1]
-    y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    states = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=x.device)
-    gamma = torch.empty((B, nc, H), dtype=torch.float32, device=x.device)
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((B, nc, H, N, P), dtype=torch.float32,
+                        device=x.device),
+            torch.empty((B, nc, H), dtype=torch.float32, device=x.device))
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_fwd", mutates_args=(),
+                         device_types="cpu")
+def _ssd_fwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 as one op: the plain version on the CPU, the kernel on CUDA."""
+    return tuple(t.contiguous() for t in ssd_chunk_plain(x, dt, A, Bm, Cm))
+
+
+@_ssd_fwd_op.register_kernel("cuda")
+def _ssd_fwd_cuda(x, dt, A, Bm, Cm):
+    _check_kernel_shapes(x, Bm, Cm)
+    y, states, gamma = _fwd_outputs(x, Bm.shape[-1])
     _launch(x, dt, A.float().contiguous(), Bm, Cm, y, states, gamma)
     return y, states, gamma
 
 
+@_ssd_fwd_op.register_fake
+def _ssd_fwd_fake(x, dt, A, Bm, Cm):
+    return _fwd_outputs(x, Bm.shape[-1])
+
+
 def _check_kernel_shapes(x, Bm, Cm) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"the SSD scan runs on cpu or cuda, not {x.device}")
     P, Q, N = x.shape[-1], x.shape[2], Bm.shape[-1]
     if Q > MAX_Q or P > MAX_P or N > MAX_N:
         raise ValueError(f"the CUDA kernels take Q <= {MAX_Q}, P <= {MAX_P}, "
@@ -215,25 +244,52 @@ def ssd_chunk_bwd(x, dt, A, Bm, Cm, dy, dstates, dgamma):
         raise ValueError(f"want f32 dstates (B,nc,H,N,P) and dgamma (B,nc,H); "
                          f"got {tuple(dstates.shape)} {dstates.dtype}, "
                          f"{tuple(dgamma.shape)} {dgamma.dtype}")
-    if x.device.type == "cpu":
-        return ssd_chunk_bwd_plain(x, dt, A, Bm, Cm, dy, dstates, dgamma)
-    _check_kernel_shapes(x, Bm, Cm)
-    if dy.stride(-1) != 1:
-        dy = dy.contiguous()
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SSD scan runs on cpu or cuda, not {x.device}")
+    return _ssd_bwd_op(x, dt, A, Bm, Cm, dy, dstates, dgamma)
+
+
+def _bwd_outputs(x, N: int):
+    B, nc, Q, H, P = x.shape
     dev = x.device
-    outs = (torch.empty(x.shape, dtype=x.dtype, device=dev),
+    return (torch.empty(x.shape, dtype=x.dtype, device=dev),
             torch.empty((B, nc, Q, H), dtype=torch.float32, device=dev),
             torch.empty((B, nc, Q, H, N), dtype=torch.float32, device=dev),
             torch.empty((B, nc, Q, H, N), dtype=torch.float32, device=dev),
             torch.empty((B, nc, H), dtype=torch.float32, device=dev))
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_bwd", mutates_args=(),
+                         device_types="cpu")
+def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                dstates: torch.Tensor, dgamma: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """K5 as one op: the plain version on the CPU, the kernel on CUDA."""
+    return ssd_chunk_bwd_plain(x, dt, A, Bm, Cm, dy, dstates, dgamma)
+
+
+@_ssd_bwd_op.register_kernel("cuda")
+def _ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, dstates, dgamma):
+    _check_kernel_shapes(x, Bm, Cm)
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    B, nc, Q, H, _ = x.shape
+    outs = _bwd_outputs(x, Bm.shape[-1])
     n_tiles = -(-Q // 64)
     # per cell, in f64: dw, column sums of U and of dM∘M, and one slot of row
     # sums of dM∘M per column tile (the kernel's layout; see ssd_scan_bwd.cu)
     scratch = torch.empty((B * nc * H, 3 + n_tiles, Q), dtype=torch.float64,
-                          device=dev)
+                          device=x.device)
     _launch_bwd(x, dt, A.float().contiguous(), Bm, Cm, dy,
                 dstates.contiguous(), dgamma.contiguous(), outs, scratch)
     return outs
+
+
+@_ssd_bwd_op.register_fake
+def _ssd_bwd_fake(x, dt, A, Bm, Cm, dy, dstates, dgamma):
+    return _bwd_outputs(x, Bm.shape[-1])
 
 
 ssd_chunk_bwd.launches = 0

@@ -37,6 +37,10 @@ lengths with and without a ragged tail; poly16 at 1e-12 in f64 and 1e-5 in
 f32 (one FMA a Horner step against a product and a sum); STREAM
 Triad K2 at rtol 1e-5, atol 1e-6 in f32 and bit for bit in f64, at every
 CTA cap, on both of its paths.  K5 gives the same bits on two runs.
+K3, K4 and K5 are also called as the custom ops that a captured graph
+holds (``torch.ops.repro_torch.*``), at the tolerances above, through
+``torch.library.opcheck``, and a reduced kernel-path step captured on the
+card (``core.aten``) launches nothing and holds one custom call per launch.
 """
 import numpy as np
 import pytest
@@ -481,6 +485,126 @@ def test_flash_kernel_refuses_to_drop_a_gradient(cuda_device):
         fa.flash_attention_bhsd(q, q, q, causal=True)
     with torch.no_grad():
         fa.flash_attention_bhsd(q, q, q, causal=True)
+
+
+# ------------------------------------------- K3, K4, K5 as custom ops
+def _counts():
+    return (fa.flash_attention_bhsd.launches, ssd.ssd_chunk.launches,
+            ssd.ssd_chunk_bwd.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_on_the_card_match_plain(cuda_device, dtype):
+    """The ops called directly, as a captured graph calls them: the CUDA
+    implementations launch the kernels (the counters move by one each) and
+    hold the plain versions at the tolerances above; B and C go in as a
+    stride-0 head broadcast."""
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               .to(cuda_device, dtype).transpose(1, 2)
+               for sh in ((2, 300, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64)))
+    before = _counts()
+    got = torch.ops.repro_torch.flash_attention(q, k, v, True, 128, 128)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 512, 4, 64, 128, 22, True,
+                                   dtype)
+    args = [_chunks(t, 256) for t in (x, dt)] + [A] \
+        + [_chunks(t, 256) for t in (Bm, Cm)]
+    assert args[3].stride(3) == 0
+    got = torch.ops.repro_torch.ssd_chunk_fwd(*args)
+    want = ssd.ssd_chunk_plain(*args)
+    for g, w, tol in zip(got, want, (SSD_TOL[dtype], SSD_TOL[torch.float32],
+                                     SSD_TOL[torch.float32])):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=tol, atol=tol)
+    B, nc = args[0].shape[:2]
+    dy = torch.from_numpy(rng.standard_normal(
+        (B, nc, 256, 4, 64), dtype=np.float32)).to(cuda_device, dtype)
+    dstates = torch.from_numpy(rng.standard_normal(
+        (B, nc, 4, 128, 64), dtype=np.float32)).to(cuda_device)
+    dgamma = torch.from_numpy(rng.standard_normal(
+        (B, nc, 4), dtype=np.float32)).to(cuda_device)
+    got = torch.ops.repro_torch.ssd_chunk_bwd(*args, dy, dstates, dgamma)
+    want = ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma)
+    exact = ssd.ssd_chunk_bwd_plain(*(t.double() for t in (
+        *args, dy, dstates, dgamma)))
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 1 for c in before)
+    for i, (g, w, e) in enumerate(zip(got, want, exact)):
+        g, w, e = (t.double().cpu().numpy() for t in (g, w, e))
+        if i == 0 and dtype == torch.bfloat16:
+            tol = 2e-2 * (1 + np.abs(w))
+        else:
+            group = {4: (0, 1), 1: (2,)}.get(i, (2, 4))
+            tol = (1e-3 * (1 + np.abs(e))
+                   + 1e-4 * np.abs(e).max(group, keepdims=True))
+        assert (np.abs(g - w) <= 2 * tol).all(), i
+
+
+def test_custom_ops_pass_opcheck_on_the_card(cuda_device):
+    """Schema, fake implementations (K3's output laid out (B, S, H, D) on
+    the card), autograd registration and AOT dispatch of the CUDA
+    implementations."""
+    gen = torch.Generator(cuda_device).manual_seed(23)
+    q = torch.randn((1, 4, 128, 64), generator=gen, device=cuda_device
+                    ).bfloat16()
+    torch.library.opcheck(torch.ops.repro_torch.flash_attention.default,
+                          (q, q[:, :2], q[:, :2], True, 128, 128))
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 256, 4, 64, 64, 24, True)
+    args = [_chunks(t, 128) for t in (x, dt)] + [A] \
+        + [_chunks(t, 128) for t in (Bm, Cm)]
+    torch.library.opcheck(torch.ops.repro_torch.ssd_chunk_fwd.default, args)
+    B, nc = args[0].shape[:2]
+    dy = torch.randn(args[0].shape, generator=gen, device=cuda_device)
+    dstates = torch.randn((B, nc, 4, 64, 64), generator=gen,
+                          device=cuda_device)
+    dgamma = torch.randn((B, nc, 4), generator=gen, device=cuda_device)
+    torch.library.opcheck(torch.ops.repro_torch.ssd_chunk_bwd.default,
+                          (*args, dy, dstates, dgamma))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_capture_on_the_card_has_one_custom_call_per_launch(cuda_device,
+                                                            arch):
+    """A reduced kernel-path train step and prefill on the card: the
+    capture (fake tensors) launches nothing and holds one custom call per
+    launch that the eager run counts."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.core import aten
+    from repro_torch.train.trainer import make_train_step
+    cfg = reduced_config(ARCHS[arch])
+    model = build_model(cfg, ssd_impl="kernel")
+    params = model.init(torch.Generator(cuda_device).manual_seed(0),
+                        dtype=torch.bfloat16)
+    toks = {"tokens": torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, size=(2, 64))).to(cuda_device)}
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"))
+    step, opt_init = make_train_step(model, run)
+    flash = build_model(cfg, attn_impl="flash", ssd_impl="kernel")
+
+    def prefill(p, b):
+        with torch.no_grad():
+            return flash.prefill_fn(p, b)
+
+    for fn, args in ((step, (params, opt_init(params), toks)),
+                     (prefill, (params, toks))):
+        before = _counts()
+        fn(*args)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(_counts(), before))
+        prog = aten.parse_graph(aten.capture(fn, *args))
+        assert _counts() == tuple(a + b for a, b in zip(before, launched))
+        calls = [0, 0, 0]
+        for o in prog.ops:
+            if o.opcode == "custom-call":
+                calls[["flash_attention", "ssd_chunk_fwd",
+                       "ssd_chunk_bwd"].index(o.name.rstrip("_0123456789"))
+                      ] += 1
+        assert tuple(calls) == launched and sum(launched) > 0
 
 
 def _stream_inputs(device, name, n, seed):

@@ -39,7 +39,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.train.fault"} <= names
     assert {f"repro_torch.core.{m}" for m in (
         "hlo", "memory", "hwspec", "cost", "engine", "roofline", "stats",
-        "compiled", "schedule", "pa", "simulate", "calibrate")} <= names
+        "compiled", "schedule", "pa", "simulate", "calibrate", "aten")} \
+        <= names
     assert {"repro_torch.kernels.stream",
             "repro_torch.configs.a64fx_kernelsuite"} <= names
 
