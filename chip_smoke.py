@@ -8,9 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name, count;
 2. the build: ``nvcc`` builds every kernel of the paths from ``src/`` (K1
-   and K2 in ``stream.cu``, K3, K4 and K5), one compiler per source, all
-   started together (seconds, ptxas register, shared-memory and spill
-   lines; K3's dynamic shared memory a CTA for each head dim; K5's for
+   and K2 in ``stream.cu``, K3, K4, K5 and the scan), one compiler per
+   source, all started together (seconds, ptxas register, shared-memory
+   and spill lines; K3's dynamic shared memory a CTA for each head dim; K5's for
    each instance, with the times it forms s = C.B^T and dM = dy.x^T per
    tile pair; K4's for each instance; the run fails if ptxas reports a
    spill or serialized wgmma (C75xx) for any K4 instance);
@@ -110,15 +110,29 @@ Phases, in order; any failure exits non-zero and prints no result:
     request (K4 96 and K5 48 for mamba2-1.3b's step, ...); each is
     simulated against the H100 fitted in phase 15 with both engines and
     printed beside the measured kernel time and host clock, with the
-    differences and the seconds that capture and simulation took.
+    differences and the seconds that capture and simulation took;
+20. the node engine and the simulator's own scan (``kernels.sched_scan``,
+    ``csrc/sched_scan.cu``, built in phase 2): J1, ``schedule_batch`` over
+    calibrate's 90-combo O3 grid for each of phase 19's captures against
+    the H100 of phase 15; J2, ``schedule_node_sweep`` at 12 and 48 cores,
+    shard, under ``A64FX_CORE`` + ``A64FX_NODE`` on a 10k-op DAG and on
+    mamba2-1.3b's 26,181-op training step, and ``schedule_node_batch`` at 48
+    cores, round-robin and graph, on the DAG; each with
+    ``backend="torch"`` and ``backend="numpy"``, 0 elements differing, the
+    kernel's launches counted; the kernel against its plain version on the
+    card at the first passes' inputs, its device time beside its bound (a
+    pointer chase times the dependent load of the chain floor); and
+    ``simulate(engine="node")`` of the step on 48 cores with its PA
+    report's node section.
 
 After each model's serving phase, the profiler's kernel time of one prefill
 of its longest prompt (with each kernel's share) and of 8 decode steps, beside
 the host clock and the device's idle share.
 Each serving and training phase sets every kernel's launch count to 0 just
 before it and reads the counts just after; so does the calibration path
-for K1 and K2.  Then one ``{"kernels": [...]}`` line and, last,
-the ``{"ok": true, ...}`` line.  There is no CPU path: without a CUDA device
+for K1 and K2, and phase 20 for the scan around each case's torch run.
+Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line.  There is no CPU path: without a CUDA device
 the script exits with 1.
 """
 from __future__ import annotations
@@ -142,7 +156,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12         # CUDA-core FMAs (the bounds' f32 variants)
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")  # model paths
-SOURCES = (*KERNELS, "stream")        # csrc/*.cu, built side by side
+SOURCES = (*KERNELS, "stream", "sched_scan")   # csrc/*.cu, side by side
 KERNEL_FUNCTIONS = {"flash_attention": "flash_fwd_",   # CUDA function names
                     "ssd_scan": "ssd_chunk_fwd", "ssd_scan_bwd": "ssd_bwd_"}
 CUBLAS_FUNCTIONS = ("gemm", "nvjet", "xmma", "cutlass")  # library matmuls
@@ -744,7 +758,8 @@ CUSTOM_OPS = {"flash_attention": "flash_attention",
 CAPTURE_MEM_BYTES = 1 << 20
 
 
-def fig3_steps(dev, hw, servings, trainings, timed, read_launches) -> list:
+def fig3_steps(dev, hw, servings, trainings, timed, read_launches,
+               programs) -> list:
     """Phase 19, Fig. 3 at the scale of a model step: capture the two
     training steps and the three 2048-token prefills at full width (fake
     tensors: nothing runs on the card, none of the model's memory is
@@ -753,7 +768,9 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches) -> list:
     launches its phase counted, simulate it against the fitted ``hw`` with
     both engines, and print the simulated beside the measured times: the
     profiler's kernel time and the host clock of the phase's traced step or
-    prefill (for the plain path, measured here by ``timed``)."""
+    prefill (for the plain path, measured here by ``timed``).  Each
+    capture's parsed program is appended to ``programs`` as (label,
+    Program), for phase 20."""
     import numpy as np
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -811,6 +828,7 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches) -> list:
                        title=label)
         t_sim = time.perf_counter() - t0
         del gm
+        programs.append((label, rep.program))
         classes = rep.program.by_class()
         occ_ms, sched_ms = rep.engine.t_est * 1e3, rep.schedule.t_est * 1e3
         kernel_ms, host_ms = measured
@@ -917,6 +935,206 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches) -> list:
           f"median |diff| of the occupancy estimate from the kernel time over "
           f"{len(diffs)} captures: {np.median(diffs):.1f} %")
     return rows
+
+
+# phase 20: the node engine and the simulator's own scan
+SCAN_CORE_COUNTS = (12, 48)        # the shard sweep's core counts (J2)
+SCAN_STREAMS = 48                  # J2's op partitions: a stream a core
+SCAN_STEP = "mamba2-1.3b training step"     # phase 19's 26,181-op capture
+
+
+def node_section(pa: str) -> list:
+    """The PA report's node-engine lines."""
+    lines = pa.splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith("  node engine ("))
+    end = next((i for i in range(start + 1, len(lines))
+                if not lines[i].startswith("    ")), len(lines))
+    return lines[start:end]
+
+
+def node_engine(dev, hw, captures) -> dict:
+    """Phase 20, the batched schedulers through the scan kernel
+    (``kernels.sched_scan``) against their NumPy passes, 0 elements
+    differing in every case:
+
+    * J1, ``schedule_batch`` (the reference's ``schedule_batch_jax``):
+      calibrate's 90-combo O3 grid for each of phase 19's captures, against
+      the H100 fitted in phase 15;
+    * J2, the node engine (``_node_pass_batch_jax``): ``schedule_node_sweep``
+      at core counts (12, 48), shard, under ``A64FX_CORE`` + ``A64FX_NODE``
+      on the 10k-op DAG of ``tools/sched_throughput_torch.py`` and on the
+      mamba2-1.3b training step; ``schedule_node_batch`` at 48 cores,
+      round-robin and graph, on the DAG (48 streams, the ring addend);
+
+    each with both backends' wall seconds, op-instances a second, the
+    kernel's launches and device time (CUDA events around each launch).
+    Then the kernel against its plain version on the card at the inputs of
+    J1's and J2's first passes on the step (and of the DAG's 48-stream
+    pass), its device time there beside its bound: the larger of the bytes
+    it must move over 3.35 TB/s and a chain floor, n dependent
+    shared-memory loads, timed by a pointer chase here (the L2's beside
+    it). Last, ``simulate(engine="node")`` of the step on 48 cores, its PA
+    report's node section printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import compiled, node
+    from repro_torch.core.hwspec import A64FX_CORE, A64FX_NODE
+    from repro_torch.core.simulate import simulate
+    from repro_torch.kernels import sched_scan
+    sys.path.insert(0, str(ROOT / "tools"))
+    from sched_throughput_torch import compare, synthetic_program
+
+    t_phase = time.perf_counter()
+    combos = [(w, mw, vw, qd) for w in cal.O3_WINDOWS
+              for mw in cal.O3_MEM_WIDTHS for vw in cal.O3_VPU_WIDTHS
+              for qd in cal.O3_QUEUE_DEPTHS]
+    shared_ns = sched_scan.pointer_chase_ns("shared", dev)
+    l2_ns = sched_scan.pointer_chase_ns("l2", dev)
+    print(f"[scan] dependent load, pointer chase on the card: shared memory "
+          f"{shared_ns:.2f} ns, L2 (past the L1) {l2_ns:.2f} ns")
+    step = next(p for label, p in captures if label.startswith(SCAN_STEP))
+    dag = synthetic_program()
+
+    def show(row):
+        first = row["first_launch"]
+        print(f"[scan] {row['case']}: {row['n_ops']} ops, {row['elements']} "
+              f"elements, {row['passes_elements']} element passes "
+              f"({row['scheduled_ops']} op-instances); numpy "
+              f"{row['numpy_s']:.3f} s ({row['numpy_ops_per_s']:.3e} op/s), "
+              f"torch {row['torch_s']:.3f} s ({row['torch_ops_per_s']:.3e} "
+              f"op/s, {row['speedup']:.2f}x); {row['launches']} launches, "
+              f"{row['kernel_ms']:.3f} ms of kernel time (first launch "
+              f"{first['elements']} elements {first['ms']:.3f} ms); "
+              f"{row['differing']} elements differ")
+        if not row["launches"]:
+            fail(f"{row['case']}: the scan kernel was not launched")
+        return row
+
+    cases = []
+    hw_grid = compiled.O3Knobs.from_grid(hw, combos)
+    for label, prog in captures:                                   # J1
+        cp = compiled.compile_program(prog, hw, compute_dtype="bf16")
+        cases.append(show(compare(
+            f"J1 schedule_batch, {label}",
+            lambda b, d, cp=cp: compiled.schedule_batch(cp, hw_grid, b, d),
+            cp.n, dev)))
+    a64_grid = compiled.O3Knobs.from_grid(A64FX_CORE, combos)
+    ncs = {}
+    for label, prog in (("10k-op DAG", dag), (SCAN_STEP, step)):   # J2
+        nc = ncs[label] = node.compile_node(prog, A64FX_CORE,
+                                            compute_dtype="bf16")
+        cases.append(show(compare(
+            f"J2 schedule_node_sweep {SCAN_CORE_COUNTS} shard, {label}",
+            lambda b, d, nc=nc: node.schedule_node_sweep(
+                nc, A64FX_CORE, a64_grid, SCAN_CORE_COUNTS, A64FX_NODE,
+                "shard", backend=b, device=d).ravel(), nc.n, dev)))
+    for part in ("round-robin", "graph"):
+        cases.append(show(compare(
+            f"J2 schedule_node_batch {SCAN_STREAMS} cores {part}, 10k-op DAG",
+            lambda b, d, part=part: node.schedule_node_batch(
+                ncs["10k-op DAG"], A64FX_CORE, a64_grid, SCAN_STREAMS,
+                A64FX_NODE, part, backend=b, device=d).t_est,
+            len(dag.ops), dev)))
+
+    # the kernel against its plain version at the first passes' inputs
+    def first_pass(what, st, durs, knobs):
+        args = (torch.from_numpy(np.ascontiguousarray(durs)).to(dev),
+                *sched_scan.knob_tensors(knobs.window, knobs.width,
+                                         knobs.depth, dev))
+        if durs.shape[1] != knobs.batch:
+            args = (args[0].expand(st.n, knobs.batch), *args[1:])
+        got = sched_scan.node_scan(st, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sched_scan.node_scan_plain(st, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        differ = int((got.view(torch.int64) != plain.view(torch.int64))
+                     .sum())
+        if differ:
+            fail(f"{what}: the scan kernel differs from its plain version in "
+                 f"{differ} elements")
+        ms = time_ms(lambda: sched_scan.node_scan(st, *args), 5, warmup=1)
+        M = knobs.batch
+        nbytes = sched_scan.scan_bytes(st, durs.shape[1], knobs.window,
+                                       knobs.width, knobs.depth)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        chain_ms = st.n * shared_ns * 1e-6
+        row = {"case": what, "n_ops": st.n, "streams": st.n_streams,
+               "elements": M, "ms": ms, "plain_ms": plain_ms,
+               "bytes": nbytes, "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+               "bound_ms": max(bytes_ms, chain_ms),
+               "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+               "ns_per_op": ms * 1e6 / st.n, "differing": differ}
+        print(f"[scan] kernel vs plain, {what}: {st.n} ops, {st.n_streams} "
+              f"stream(s), {M} elements: 0 of {M} differ; kernel {ms:.3f} "
+              f"ms ({row['ns_per_op']:.1f} ns an op), plain (on the card) "
+              f"{plain_ms:.1f} ms; bound {row['bound_ms']:.4f} ms by "
+              f"{'bytes' if bytes_ms >= chain_ms else 'the chain'}: bytes "
+              f"{nbytes / 1e6:.2f} MB = {bytes_ms:.4f} ms, chain {st.n} x "
+              f"{shared_ns:.2f} ns = {chain_ms:.4f} ms (L2 chain {st.n} x "
+              f"{l2_ns:.2f} ns = {st.n * l2_ns * 1e-6:.3f} ms); kernel at "
+              f"{row['bound_ms'] / ms:.1%} of the bound; no PyTorch call "
+              f"computes this function")
+        return row
+
+    timed = []
+    cp = compiled.compile_program(step, hw, compute_dtype="bf16")
+    timed.append(first_pass(f"J1 {SCAN_STEP}", compiled.scan_structure(cp, dev),
+                            cp.durations[:, None], hw_grid))
+    for label in (SCAN_STEP, "10k-op DAG"):
+        nc = ncs[label]
+        nb = node.compile_node_batch(nc, A64FX_CORE, max(SCAN_CORE_COUNTS),
+                                     A64FX_NODE, "shard")
+        cols = []
+        for k in SCAN_CORE_COUNTS:
+            ctx = node._batch_context(nb, k)
+            inv_r, inv_w = node._eff_inv(nc, A64FX_NODE, ctx["cores"],
+                                         ctx["n_active"])
+            cols.append(np.repeat(node._contended_durs_arr(
+                nc, inv_r[0], inv_w[0], ctx["scale"])[:, None],
+                a64_grid.batch, axis=1))
+        tiled = compiled.O3Knobs(
+            window=np.tile(a64_grid.window, len(SCAN_CORE_COUNTS)),
+            width=np.tile(a64_grid.width, (len(SCAN_CORE_COUNTS), 1)),
+            depth=np.tile(a64_grid.depth, (len(SCAN_CORE_COUNTS), 1)))
+        timed.append(first_pass(f"J2 shard {label}",
+                                node.scan_structure(nb, dev),
+                                np.concatenate(cols, axis=1), tiled))
+    nb = node.compile_node_batch(ncs["10k-op DAG"], A64FX_CORE, SCAN_STREAMS,
+                                 A64FX_NODE, "round-robin")
+    timed.append(first_pass(
+        f"J2 {SCAN_STREAMS} streams round-robin 10k-op DAG",
+        node.scan_structure(nb, dev), ncs["10k-op DAG"].cp.durations[:, None],
+        a64_grid))
+
+    t0 = time.perf_counter()
+    rep = simulate(step, hw=A64FX_CORE, compute_dtype="bf16", engine="node",
+                   n_cores=SCAN_STREAMS, topology=A64FX_NODE,
+                   title=SCAN_STEP)
+    t_report = time.perf_counter() - t0
+    if not (rep.node.t_zero_contention <= rep.node.t_est
+            and np.isfinite(rep.node.t_est)):
+        fail(f"the node engine's estimate {rep.node.t_est} is below its "
+             f"zero-contention bound {rep.node.t_zero_contention}")
+    print(f"[scan] simulate({SCAN_STEP}, A64FX_CORE, engine='node', "
+          f"n_cores={SCAN_STREAMS}, topology=A64FX_NODE) in {t_report:.1f} "
+          f"s; its PA report's node section:")
+    for line in node_section(rep.pa):
+        print(f"[scan] {line}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[scan] phase 20: {seconds:.1f} s")
+    return {"cases": cases, "kernel_vs_plain": timed,
+            "pointer_chase_ns": {"shared": shared_ns, "l2": l2_ns},
+            "launches": sum(r["launches"] for r in cases),
+            "node_report": {"t_est": rep.node.t_est,
+                            "t_zero_contention": rep.node.t_zero_contention,
+                            "iterations": rep.node.iterations,
+                            "seconds": t_report},
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -1846,17 +2064,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         return (busy * 1e3, wall * 1e3) if busy > 0 else (None, None)
 
+    captures = []
     step_sims = fig3_steps(dev, fitted_h100, servings, trainings,
-                           plain_prefill_ms, read_launches)
+                           plain_prefill_ms, read_launches, captures)
+
+    # 20. the node engine and the simulator's own scan on the card
+    node_phase = node_engine(dev, fitted_h100, captures)
 
     if failures:
         fail("; ".join(failures))
+    scan_row = next(r for r in node_phase["kernel_vs_plain"]
+                    if r["case"] == f"J2 shard {SCAN_STEP}")
     for record in servings:
         print(json.dumps({"serving": record}))
     for record in trainings:
         print(json.dumps({"training": record}))
     print(json.dumps({"calibration": calibration}))
     print(json.dumps({"fig3_steps": step_sims}))
+    print(json.dumps({"node_engine": node_phase}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in servings + trainings}
                for k in KERNELS}
     print(json.dumps({"kernels": [{
@@ -1941,7 +2166,25 @@ def main() -> int:
                      "1e-12|plain|",
         "share_of_tolerance": max(stream_checks["k2_used"],
                                   stream_times["k2_used"]),
-        **stream_times["k2"]}]}))
+        **stream_times["k2"]}, {
+        "name": "sched_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sched_scan.cu",
+        "replaces": "src/repro/core/compiled.py:412",
+        "also_replaces": "src/repro/core/node.py:940",
+        "launches": node_phase["launches"],
+        "launches_by_path": {r["case"]: r["launches"]
+                             for r in node_phase["cases"]},
+        "max_abs_err": 0.0,
+        "tolerance": "bit-identical to the plain version and to the NumPy "
+                     "pass (0 elements differ)",
+        "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
+        "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
+        "timing": "device time: CUDA events around 5 calls after a warm-up; "
+                  "plain: host clock of one call on the card",
+        "library_ms": None,
+        "shape": scan_row["case"] + f", {scan_row['n_ops']} ops, "
+                 f"{scan_row['elements']} elements",
+        "by_case": node_phase["kernel_vs_plain"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -3,7 +3,9 @@
 HLO parsing (``hlo``), the unified cost pipeline (``cost``, ``memory``),
 the occupancy and O3 engines (``engine``, ``schedule``/``compiled``),
 hardware parameter files (``hwspec``, with the ``H100`` test chip),
-calibration on the card (``calibrate``), and reporting (``roofline``,
-``pa``, ``simulate``).  The node engine, sampling, the model zoo, DSE and
-the cluster and serving simulators are still to port (ROADMAP queue 1).
+calibration on the card (``calibrate``), the multi-core node engine
+(``node``, its batched passes also as a scan kernel on the card), and
+reporting (``roofline``, ``pa``, ``simulate``).  Sampling, the model zoo,
+DSE and the cluster and serving simulators are still to port (ROADMAP
+queue 1).
 """

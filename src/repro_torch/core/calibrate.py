@@ -474,47 +474,68 @@ def sweep_o3(table: AccuracyTable, hw: HardwareSpec,
              windows=O3_WINDOWS, mem_widths=O3_MEM_WIDTHS,
              queue_depths=O3_QUEUE_DEPTHS, vpu_widths=O3_VPU_WIDTHS,
              compute_dtype: str = "f64", backend: str = "numpy",
-             core_counts: Sequence[int] = (1,)) -> "O3Sweep":
+             core_counts: Sequence[int] = (1,), topology=None,
+             device="cuda") -> "O3Sweep":
     """Re-schedule already-measured programs under each knob combination
     (no re-measurement) and rank combos by mean |diff| of the schedule
     engine vs the measured times.
 
     The whole grid runs batched (``core.compiled.schedule_batch``): each
     program is compiled once to array form and one sequential pass per
-    program advances all combos in lockstep.  Only ``backend="numpy"`` and
-    one core are ported; a core count above 1 (the node engine) raises,
-    naming ROADMAP queue 1 item 9.  Requires a table built with
-    ``keep_programs=True``.  Returns an :class:`O3Sweep` (ranked results +
-    the tuned ``HardwareSpec``)."""
+    program advances all combos in lockstep.  ``backend="torch"`` runs
+    each pass as the scan kernel on ``device`` (``kernels.sched_scan``),
+    bit-identical to ``"numpy"``.
+
+    ``core_counts`` adds the node engine's core count as a sweep axis:
+    the counts above 1 ride one fused batch of the batched node engine
+    (``core.node.schedule_node_sweep``, shard partition under
+    ``topology``), which carries every knob combo through its own
+    contention fixpoint.  Rows against single-core measurements are only
+    comparable at ``n_cores=1``; ``best`` is picked among the smallest
+    swept core count.  Requires a table built with ``keep_programs=True``.
+    Returns an :class:`O3Sweep` (ranked results + the tuned
+    ``HardwareSpec``)."""
     from .compiled import O3Knobs, compile_program, schedule_batch
+    from .node import compile_node, schedule_node_sweep
     if not table.programs:
         raise ValueError("sweep_o3 needs kernel_accuracy_table("
                          "keep_programs=True)")
-    core_counts = tuple(core_counts) or (1,)
-    if any(k != 1 for k in core_counts):
-        raise NotImplementedError(
-            f"sweep_o3(core_counts={core_counts}): the node engine is not "
-            "ported yet (ROADMAP queue 1 item 9)")
     import numpy as np
     combos = [(w, mw, vw, qd) for w in windows for mw in mem_widths
               for vw in vpu_widths for qd in queue_depths]
     knobs = O3Knobs.from_grid(hw, combos)
-    diffs = np.empty((len(table.programs), knobs.batch))
+    core_counts = tuple(core_counts) or (1,)
+    diffs = np.empty((len(table.programs), len(core_counts), knobs.batch))
+    node_counts = sorted({k for k in core_counts if k > 1})
     for r, (prog, row) in enumerate(zip(table.programs, table.rows)):
-        cp = compile_program(prog, hw, compute_dtype=compute_dtype)
-        t_us = schedule_batch(cp, knobs, backend=backend) * 1e6
-        diffs[r] = np.abs(t_us - row.measured_us) / row.measured_us * 100.0
+        t_by_count = {}
+        if 1 in core_counts:
+            cp = compile_program(prog, hw, compute_dtype=compute_dtype)
+            t_by_count[1] = schedule_batch(cp, knobs, backend=backend,
+                                           device=device)
+        if node_counts:
+            sw = schedule_node_sweep(
+                compile_node(prog, hw, compute_dtype=compute_dtype),
+                hw, knobs, node_counts, topology, partition="shard",
+                backend=backend, device=device)
+            t_by_count.update(zip(node_counts, sw))
+        for ci, n_cores in enumerate(core_counts):
+            t_us = t_by_count[n_cores] * 1e6
+            diffs[r, ci] = np.abs(t_us - row.measured_us) \
+                / row.measured_us * 100.0
     mean_abs = diffs.mean(axis=0)
     within = (diffs <= 10.0).mean(axis=0)
     results: List[Dict] = []
-    for k, (w, mw, vw, qd) in enumerate(combos):
-        results.append({"inflight_window": w, "mem_issue_width": mw,
-                        "vpu_issue_width": vw, "queue_depth": qd,
-                        "n_cores": 1,
-                        "mean_abs_diff_pct": float(mean_abs[k]),
-                        "within_10pct": float(within[k])})
+    for ci, n_cores in enumerate(core_counts):
+        for k, (w, mw, vw, qd) in enumerate(combos):
+            results.append({"inflight_window": w, "mem_issue_width": mw,
+                            "vpu_issue_width": vw, "queue_depth": qd,
+                            "n_cores": n_cores,
+                            "mean_abs_diff_pct": float(mean_abs[ci, k]),
+                            "within_10pct": float(within[ci, k])})
     results.sort(key=lambda r: r["mean_abs_diff_pct"])
-    best = results[0]
+    min_cores = min(core_counts)
+    best = next(r for r in results if r["n_cores"] == min_cores)
     tuned = _knob_spec(hw, best["inflight_window"], best["mem_issue_width"],
                        best["vpu_issue_width"], best["queue_depth"])
     return O3Sweep(results=results, best=tuned)

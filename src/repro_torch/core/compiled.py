@@ -1,6 +1,9 @@
 """Compiled array-form scheduling core — the simulator's hot path, SoA.
 
-A copy of ``repro.core.compiled``'s NumPy path.
+A copy of ``repro.core.compiled``.  The reference's ``schedule_batch_jax``
+(``backend="jax"``, a jitted ``lax.scan``) becomes ``backend="torch"``:
+``kernels.sched_scan.node_scan`` with one stream, the hand-written scan on
+a card, bit-identical to the NumPy pass.
 
 ``schedule_program`` was a pure-Python per-op interpreter over ``OpStat``
 dataclasses (~75k scheduled ops/s on the kernel-suite bench).  The paper's
@@ -19,9 +22,9 @@ def-use edges, packed O3 knobs) and every downstream consumer runs on it:
   grid is a batch axis; one sequential pass over the ops advances every
   knob combination in lockstep with NumPy vector ops, so enlarging the
   grid (windows up to 1024, per-port widths) is ~free,
-* the reference's ``schedule_batch_jax`` (the same scheduler as a
-  ``jax.lax.scan``) is not ported: a ``backend="torch"`` on the card
-  comes with the batched node engines (ROADMAP queue 1 item 9).
+* ``schedule_batch(backend="torch")`` — the same in-order list scheduler
+  as a CUDA kernel (``kernels.sched_scan``), so the simulator itself can
+  run on the card it models.
 
 Every kernel replays the reference scheduler's float operations in the
 same order, so ``t_est`` is bit-identical to ``core.schedule``'s
@@ -330,21 +333,20 @@ def schedule_arrays(cp: CompiledProgram, hw: HardwareSpec
 
 # ------------------------------------------------------ batched numpy kernel
 def schedule_batch(cp: CompiledProgram, knobs: O3Knobs,
-                   backend: str = "numpy") -> np.ndarray:
+                   backend: str = "numpy", device="cuda") -> np.ndarray:
     """Schedule every knob combination in ``knobs`` against the shared
     compiled program in ONE sequential pass over the ops (the knob grid is
     the vector axis of every state update).  Returns ``t_est`` per combo,
-    bit-identical to running the scalar kernel per combination."""
+    bit-identical to running the scalar kernel per combination.
+    ``backend="torch"`` runs the pass on ``device`` (default ``cuda``,
+    which raises without a card): the scan kernel on a card, its plain
+    PyTorch version on the CPU; bit-identical to ``"numpy"``."""
+    dev = check_backend(backend, device)
     uk, inv = knobs.unique()
     if uk is not knobs:               # clamped grids alias rows: schedule
-        return schedule_batch(cp, uk, backend)[inv]   # each combo once
-    if backend in ("jax", "torch"):
-        raise NotImplementedError(
-            f"schedule_batch(backend={backend!r}) is not ported yet: the "
-            "batched scheduler on the card comes with ROADMAP queue 1 item 9; "
-            "use backend='numpy'")
-    if backend != "numpy":
-        raise ValueError(f"unknown schedule backend {backend!r}")
+        return schedule_batch(cp, uk, backend, device)[inv]  # each once
+    if dev is not None:
+        return _schedule_batch_torch(cp, knobs, dev)
     B = knobs.batch
     n = cp.n
     t_est = np.zeros(B, dtype=np.float64)
@@ -411,3 +413,55 @@ def schedule_batch(cp: CompiledProgram, knobs: O3Knobs,
         rt[i] = rt_prev
         np.maximum(t_est, finish, out=t_est)
     return t_est
+
+
+# ------------------------------------------------------- the scan on a card
+def check_backend(backend: str, device):
+    """The batched passes' backends: ``"numpy"`` (returns None) or
+    ``"torch"``, the scan kernel (returns ``device`` resolved: ``cuda``
+    raises without a card).  The reference's ``"jax"`` is not the port's."""
+    if backend == "jax":
+        raise ValueError("backend='jax' is the reference's jitted scan; the "
+                         "port's scan on the card is backend='torch'")
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown schedule backend {backend!r}: 'numpy' "
+                         "or 'torch'")
+    if backend == "numpy":
+        return None
+    from ..device import resolve
+    return resolve(device)
+
+
+def scan_structure(cp: CompiledProgram, device):
+    """``cp`` as the scan's one-stream structure on ``device``: positions
+    in program order, each costed op's position on its port, no ring
+    addend (``kernels.sched_scan.ScanStructure``); cached on ``cp``."""
+    from ..kernels import sched_scan
+    device = str(device)
+    cache = cp.__dict__.setdefault("_scan", {})
+    st = cache.get(device)
+    if st is None:
+        port = cp.port_id.astype(np.int64)
+        st = cache[device] = sched_scan.ScanStructure.build(
+            cp.dep_indptr, cp.dep_indices, None, port,
+            np.zeros(cp.n, dtype=np.int64), np.arange(cp.n),
+            cp.pos_in_port, np.maximum(port, 0), 1, device)
+    return st
+
+
+def _schedule_batch_torch(cp: CompiledProgram, knobs: O3Knobs,
+                          device) -> np.ndarray:
+    """``schedule_batch``'s pass through ``kernels.sched_scan.node_scan``:
+    one duration column, broadcast over the knob batch (stride 0)."""
+    import torch
+
+    from ..kernels import sched_scan
+    B = knobs.batch
+    if cp.n == 0 or B == 0:
+        return np.zeros(B, dtype=np.float64)
+    st = scan_structure(cp, device)
+    durs = torch.from_numpy(cp.durations).to(st.device)[:, None].expand(
+        cp.n, B)
+    t = sched_scan.node_scan(st, durs, *sched_scan.knob_tensors(
+        knobs.window, knobs.width, knobs.depth, st.device))
+    return t.cpu().numpy()

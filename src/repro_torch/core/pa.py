@@ -1,8 +1,6 @@
 """PA-data-style report — the paper's Fujitsu-profiler analogue.
 
-A copy of ``repro.core.pa``.  The node engine (``core.node``) is not
-ported yet (ROADMAP queue 1 item 9): ``node`` is a ``NodeResult`` of the
-reference's shape, read by attribute, and ``simulate`` never passes one.
+A copy of ``repro.core.pa``.
 
 The RIKEN simulator classified 0-instruction-commit cycles into memory wait /
 arithmetic wait / etc., counted SIMD elements honouring the predicate
@@ -16,10 +14,11 @@ equivalents:
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import List, Optional
 
 from .engine import EngineResult
 from .hlo import Program
+from .node import NodeResult
 from .roofline import Roofline
 from .schedule import ScheduleResult
 
@@ -137,7 +136,7 @@ def _schedule_section(sched: ScheduleResult) -> List[str]:
     return lines
 
 
-def _node_section(node: Any) -> List[str]:
+def _node_section(node: NodeResult) -> List[str]:
     """Per-CMG contention/occupancy — the node engine's view: how many
     cores were concurrently streaming through each shared level, and the
     per-core effective bandwidth that left each of them."""
@@ -176,7 +175,7 @@ def _node_section(node: Any) -> List[str]:
 def pa_report(rf: Roofline, eng: EngineResult, prog: Program,
               title: str = "", sched: Optional[ScheduleResult] = None,
               engine_mode: str = "occupancy",
-              node: Optional[Any] = None) -> str:
+              node: Optional[NodeResult] = None) -> str:
     lines = []
     lines.append(f"== PA report {title} ==")
     # headline matches SimReport.t_est: node-derived in node mode,

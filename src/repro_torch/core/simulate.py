@@ -8,9 +8,8 @@ already parsed or hand-built :class:`~.hlo.Program`, or a PyTorch step
 captured as an ATen graph (``core.aten.capture``: a ``torch.fx.GraphModule``
 goes through ``aten.parse_graph`` as the reference's jax ``Compiled`` goes
 through its HLO text), so ``xla_cost_analysis`` and ``memory_analysis``
-are ``None``.  The node engine (``engine="node"``, ROADMAP queue 1 item 9)
-and sampled estimation (``sampling=``, item 10) are not ported yet and
-raise.
+are ``None``.  Sampled estimation (``sampling=``, ROADMAP queue 1 item 7)
+is not ported yet and raises.
 
 This is the paper's end-to-end flow: application binary -> simulator ->
 execution-cycle estimate + PA data, before the target hardware exists.
@@ -25,6 +24,7 @@ from .cost import cost_program
 from .engine import EngineResult, simulate_program
 from .hlo import Program, parse_program
 from .hwspec import HardwareSpec, NodeTopology, TPU_V5E
+from .node import NodeResult, simulate_node
 from .pa import pa_report
 from .roofline import Roofline, roofline_from_program
 from .schedule import ScheduleResult, schedule_program
@@ -51,9 +51,10 @@ class SimReport:
     # the parsed per-op program (not serialized in to_json) so callers can
     # re-cost/re-schedule without re-parsing the HLO text
     program: Optional[Program] = None
-    # the node engine's and sampled estimation's results in the reference;
-    # always None here until those engines are ported (items 9 and 10)
-    node: Optional[Any] = None
+    # multi-core node engine result (engine="node")
+    node: Optional[NodeResult] = None
+    # sampled node estimation in the reference; always None here until
+    # sampling is ported (ROADMAP queue 1 item 7)
     sampled: Optional[Any] = None
 
     @property
@@ -173,26 +174,25 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
         the hw issue/window/queue knobs; ``report.t_est`` comes from it.
       * ``"both"``      — run both; ``t_est`` stays occupancy-derived, the
         schedule rides along in ``report.schedule`` for comparison.
-      * ``"node"``      — the multi-core node engine: not ported yet
-        (ROADMAP queue 1 item 9), raises.
+      * ``"node"``      — the multi-core node engine (``core.node``): the
+        program runs on ``n_cores`` cores of ``topology`` (default: the
+        spec's own, else a degenerate contention-free one) under
+        ``node_partition`` ("round-robin" | "graph" | "shard");
+        ``report.t_est`` is the contention-aware node makespan and the PA
+        report gains the per-CMG contention section.
 
-    ``sampling`` (sampled estimation, item 10) is not ported yet and
-    raises.  ``n_cores``, ``topology`` and ``node_partition`` belong to
-    the node engine and are accepted for the reference's signature.
+    ``sampling`` (sampled estimation, ROADMAP queue 1 item 7) is not
+    ported yet and raises.
 
     Returns a :class:`SimReport`; ``report.pa`` is the human-readable PA
     report, ``report.to_json()`` the machine-readable artifact.
     """
-    if engine == "node":
-        raise NotImplementedError(
-            "simulate(engine='node'): the node engine is not ported yet "
-            "(ROADMAP queue 1 item 9)")
-    if engine not in ("occupancy", "schedule", "both"):
+    if engine not in ("occupancy", "schedule", "both", "node"):
         raise ValueError(f"unknown engine mode {engine!r}")
     if sampling is not None:
         raise NotImplementedError(
             "simulate(sampling=...): sampled estimation is not ported yet "
-            "(ROADMAP queue 1 item 10)")
+            "(ROADMAP queue 1 item 7)")
     if isinstance(program, str):
         prog = parse_program(program)
     elif isinstance(program, Program):
@@ -209,6 +209,11 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
     sched = (schedule_program(prog, hw, compute_dtype=compute_dtype,
                               costed=costed, detail=True)
              if engine in ("schedule", "both") else None)
+    node = None
+    if engine == "node":
+        node = simulate_node(prog, hw, n_cores, topology=topology,
+                             partition=node_partition,
+                             compute_dtype=compute_dtype, costed=costed)
     rf = roofline_from_program(prog, hw, n_chips, model_flops_global,
                                compute_dtype)
     summary = {
@@ -222,5 +227,6 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
     return SimReport(hw=hw.name, n_chips=n_chips, roofline=rf, engine=eng,
                      program_summary=summary,
                      pa=pa_report(rf, eng, prog, title, sched=sched,
-                                  engine_mode=engine),
-                     schedule=sched, engine_mode=engine, program=prog)
+                                  engine_mode=engine, node=node),
+                     schedule=sched, engine_mode=engine, program=prog,
+                     node=node)

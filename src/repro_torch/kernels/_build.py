@@ -31,6 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# flags a source adds to NVCC_FLAGS: the scan must replay the NumPy pass's
+# float64 operations exactly, so nothing may be contracted into an FMA
+EXTRA_FLAGS = {"sched_scan": ("-fmad=false",)}
+
 # C signatures: name -> (restype, argtypes).
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
@@ -56,6 +60,12 @@ SIGNATURES = {
             [_P] * 14 + [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong), _P]),
         "repro_ssd_chunk_bwd_smem_bytes": (ctypes.c_int, [_I, _I, _I, _I]),
         "repro_ssd_chunk_bwd_parts": (ctypes.c_int, [_I, _I]),
+        "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "sched_scan": {
+        "repro_node_scan": (
+            ctypes.c_int, [_P] * 9 + [_L, _L] + [_P] * 9 + [_I] * 6 + [_P]),
+        "repro_sched_chase": (ctypes.c_int, [_I, _P, _I, _L, _P, _P]),
         "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "stream": {
@@ -99,13 +109,17 @@ def _local_headers(text: str) -> list[str]:
     return seen
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     text = src.read_bytes()
     h = hashlib.sha256(text)
     for header in _local_headers(text.decode()):
         h.update((CSRC / header).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -113,7 +127,7 @@ def _compile(name: str) -> tuple[float, str]:
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -22,7 +22,7 @@ recovery mechanism* — the same contract a 1000-node synchronous job has.
 
 Counterpart of ``repro.train.fault`` over ``train/checkpoint.py``; the
 reference's restart-mesh ``shardings`` wait for meshes (ROADMAP queue 1
-item 8).
+item 5).
 """
 from __future__ import annotations
 

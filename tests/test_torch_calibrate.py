@@ -68,12 +68,16 @@ def test_sweep_o3_ranks_and_tunes_like_the_reference(table):
 
 
 def test_sweep_o3_refuses_what_is_not_ported(table):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cal.sweep_o3(table, CPU_HOST, core_counts=(1, 12))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """The reference's jax backend is not the port's (its scan on the card
+    is ``backend="torch"``); core counts above 1 run the ported node
+    engine (held against the reference in test_torch_node_batch.py)."""
+    with pytest.raises(ValueError, match="torch"):
         cal.sweep_o3(table, CPU_HOST, backend="jax")
     with pytest.raises(ValueError, match="keep_programs"):
         cal.sweep_o3(cal.AccuracyTable(table.rows), CPU_HOST)
+    sweep = cal.sweep_o3(table, CPU_HOST, core_counts=(1, 12))
+    assert {r["n_cores"] for r in sweep.results} == {1, 12}
+    assert sweep.best == cal.sweep_o3(table, CPU_HOST).best
 
 
 @pytest.mark.parametrize("times", [

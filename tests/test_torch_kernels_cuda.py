@@ -41,6 +41,11 @@ K3, K4 and K5 are also called as the custom ops that a captured graph
 holds (``torch.ops.repro_torch.*``), at the tolerances above, through
 ``torch.library.opcheck``, and a reduced kernel-path step captured on the
 card (``core.aten``) launches nothing and holds one custom call per launch.
+The scheduler's scan (``kernels.sched_scan``) equals its plain version and
+the NumPy pass bit for bit (it only adds and takes maxima of float64): at
+1, 4 and 48 streams, with the cross-CMG ring addend, windows up to 1024,
+1 to 1000 batch elements and ops with more inputs than it stages at once;
+so do ``backend="torch"``'s fixpoints on the card against ``"numpy"``.
 """
 import numpy as np
 import pytest
@@ -688,3 +693,109 @@ def test_stream_kernels_reject_what_they_do_not_take(cuda_device):
         stream.stream_triad(x.view(64, 64), x.view(64, 64))
     with pytest.raises(TypeError):
         stream.stream_triad(x.int(), x.int())
+
+
+# ------------------------------------------------ the scheduler's scan
+def _scan_case(seed, n, cores, partition, M, hub=0):
+    """A random DAG (``hub`` extra ops, costed and free in turn, each
+    reading every earlier op: more edges than the kernel stages at once),
+    its batch form on ``cores``
+    cores of the A64FX node, and M random knob combos and duration
+    columns; the kernel's inputs on the card and the plain version's on
+    the CPU, and the NumPy pass's result."""
+    import random
+
+    from _sched_dags import random_program
+
+    from repro_torch.core import hlo, hwspec, node
+    from repro_torch.core.compiled import O3Knobs
+    prog = random_program(random.Random(seed), n, hlo)
+    for h in range(hub):
+        i = len(prog.ops)
+        prog.ops.append(hlo.OpStat(f"hub{h}", "tuple" if h % 2 else "fusion",
+                                   "other" if h % 2 else "data", "f32",
+                                   bytes_accessed=1e6,
+                                   read_bytes=5e5, write_bytes=5e5,
+                                   deps=list(range(i)), dep_bytes=[1.0] * i))
+    nc = node.compile_node(prog, hwspec.A64FX_CORE)
+    nb = node.compile_node_batch(nc, hwspec.A64FX_CORE, cores,
+                                 hwspec.A64FX_NODE, partition)
+    rng = np.random.default_rng(seed)
+    knobs = O3Knobs(window=rng.choice([1, 2, 4, 7, 64, 256, 1024], M),
+                    width=rng.integers(1, 5, (M, 4)),
+                    depth=rng.integers(1, 65, (M, 4)))
+    durs = nc.cp.durations[:, None] * rng.uniform(0.5, 2.0, (1, M))
+    want = node._node_pass_batch(nb, durs, knobs.window, knobs.width,
+                                 knobs.depth)
+    return nb, knobs, durs, want
+
+
+@pytest.mark.parametrize("cores,partition", [(1, "shard"), (4, "round-robin"),
+                                             (48, "round-robin"),
+                                             (48, "graph")])
+@pytest.mark.parametrize("M", [1, 33, 90, 1000])
+def test_sched_scan_kernel_matches_plain(cuda_device, cores, partition, M):
+    """Bit for bit against the plain version and the NumPy pass: S = 1, 4
+    and 48 streams, windows up to 1024, depths to 64, M from 1 to 1000; at
+    48 cores the cross-CMG ring addend is on."""
+    from repro_torch.core import node
+    from repro_torch.kernels import sched_scan
+    nb, knobs, durs, want = _scan_case(cores + M, 1100, cores, partition, M,
+                                       hub=2)
+    assert (nb.edge_extra is not None) == (cores == 48)
+    before = sched_scan.node_scan.launches
+    got = sched_scan.node_scan(
+        node.scan_structure(nb, cuda_device),
+        torch.from_numpy(durs).to(cuda_device),
+        *sched_scan.knob_tensors(knobs.window, knobs.width, knobs.depth,
+                                 cuda_device))
+    torch.cuda.synchronize()
+    assert sched_scan.node_scan.launches == before + 1
+    plain = sched_scan.node_scan_plain(
+        node.scan_structure(nb, "cpu"), torch.from_numpy(durs),
+        *sched_scan.knob_tensors(knobs.window, knobs.width, knobs.depth,
+                                 "cpu"))
+    assert torch.equal(got.cpu(), plain)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_sched_scan_backends_on_the_card_equal_numpy(cuda_device):
+    """``backend="torch"`` on the card: ``schedule_batch`` and the node
+    engines' fixpoints (48 streams with the ring addend, the shard sweep)
+    give NumPy's bits, and launch the kernel."""
+    import random
+
+    from _sched_dags import random_program
+
+    from repro_torch.core import compiled, hlo, hwspec, node
+    from repro_torch.kernels import sched_scan
+    prog = random_program(random.Random(7), 600, hlo)
+    grid = compiled.O3Knobs.from_grid(
+        hwspec.A64FX_CORE, [(w, mw, vw, qd) for w in (4, 16, 64, 256, 1024)
+                            for mw in (1, 2, 4) for vw in (1, 2)
+                            for qd in (4, 16, 64)])
+    before = sched_scan.node_scan.launches
+    cp = compiled.compile_program(prog, hwspec.CPU_HOST)
+    assert np.array_equal(
+        compiled.schedule_batch(cp, grid, "torch", cuda_device),
+        compiled.schedule_batch(cp, grid))
+    nc = node.compile_node(prog, hwspec.A64FX_CORE)
+    for part in ("round-robin", "graph"):
+        args = (nc, hwspec.A64FX_CORE, grid, 48, hwspec.A64FX_NODE, part)
+        a = node.schedule_node_batch(*args)
+        b = node.schedule_node_batch(*args, backend="torch",
+                                     device=cuda_device)
+        assert np.array_equal(a.t_est, b.t_est)
+        assert np.array_equal(a.iterations, b.iterations)
+    args = (nc, hwspec.A64FX_CORE, grid, (12, 48), hwspec.A64FX_NODE)
+    assert np.array_equal(node.schedule_node_sweep(*args),
+                          node.schedule_node_sweep(*args, backend="torch",
+                                                   device=cuda_device))
+    assert sched_scan.node_scan.launches > before + 3
+
+
+def test_pointer_chase_times_a_load(cuda_device):
+    from repro_torch.kernels import sched_scan
+    shared = sched_scan.pointer_chase_ns("shared", cuda_device, hops=1 << 14)
+    l2 = sched_scan.pointer_chase_ns("l2", cuda_device, hops=1 << 12)
+    assert 1 < shared < l2 < 5000

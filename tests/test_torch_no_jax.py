@@ -29,9 +29,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                           env={"PYTHONPATH": str(SRC), "PATH": ""})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    # configs, models, kernels, serve, launch, from slice 3 data, train, and
-    # from slice 4 the simulator core and the kernel-suite config
-    assert n_modules >= 56
+    # configs, models, kernels, serve, launch, from slice 3 data, train,
+    # from slice 4 the simulator core and the kernel-suite config, and from
+    # slice 9 the node engine and the scan kernel
+    assert n_modules >= 60
     names = set(proc.stdout.split()[2:])
     assert {"repro_torch.launch.train", "repro_torch.data.synthetic",
             "repro_torch.train.trainer", "repro_torch.train.optimizer",
@@ -39,9 +40,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.train.fault"} <= names
     assert {f"repro_torch.core.{m}" for m in (
         "hlo", "memory", "hwspec", "cost", "engine", "roofline", "stats",
-        "compiled", "schedule", "pa", "simulate", "calibrate", "aten")} \
-        <= names
-    assert {"repro_torch.kernels.stream",
+        "compiled", "schedule", "pa", "simulate", "calibrate", "aten",
+        "node")} <= names
+    assert {"repro_torch.kernels.stream", "repro_torch.kernels.sched_scan",
             "repro_torch.configs.a64fx_kernelsuite"} <= names
 
 
@@ -134,7 +135,7 @@ def test_ssd_scan_never_falls_back_to_the_cpu():
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "ssd_scan", "ssd_scan_bwd",
-                                  "stream"])
+                                  "stream", "sched_scan"])
 def test_ctypes_signatures_match_the_sources(name):
     """Each C entry point declared for ctypes exists in its CUDA source with
     as many parameters as argtypes: a mismatch would pass pointers as ints
