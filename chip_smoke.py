@@ -46,10 +46,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. model-level cross-check: the 1024-token prefill through the kernel
    (``flash``) against plain PyTorch (``blocked``), last-position logits;
 6. timing: the flash kernel at chatglm3-6b's and zamba2-1.2b's attention
-   shapes, S = 2048 and 512, on device time (each call behind a
-   device-side spin) beside its bound, the plain version and
-   ``scaled_dot_product_attention`` (timed here only; the port never calls
-   it);
+   shapes, S = 2048 and 512, and at whisper-large-v3's encoder (no mask,
+   S 1500, H 20, D 64), paligemma-3b's (S 2048, H 8 over one KV head, D
+   256) and llama4-scout's (S 2048, H 40 over 8, D 128), on device time
+   (each call behind a device-side spin) beside its bound, the plain
+   version and ``scaled_dot_product_attention`` (timed here only; the port
+   never calls it);
 7. full-width serving of mamba2-1.3b (1.34 B parameters, 48 layers, bf16,
    ``ssd_impl="kernel"``): 4 requests of 128, 512, 1000 and 2048 prompt
    tokens and 32 new tokens each; K4 must launch 48 x 4 = 192 times;
@@ -123,9 +125,39 @@ Phases, in order; any failure exits non-zero and prints no result:
     card at the first passes' inputs, its device time beside its bound (a
     pointer chase times the dependent load of the chain floor); and
     ``simulate(engine="node")`` of the step on 48 cores with its PA
-    report's node section.
+    report's node section;
+21. full-width serving of whisper-large-v3 (1.60 B parameters, 32 encoder
+    and 32 decoder layers): 3 requests of 64, 224 and 448 tokens and 32 new
+    tokens each with seeded (1, 1500, 1280) frames as ``extra_inputs``; K3
+    must launch (32 + 32) x 3 times (the encoder without a mask, the
+    decoder's self-attention; cross-attention runs blocked, as in the
+    reference); then the 448-token prefill through ``flash`` against
+    ``blocked`` with the same weights in f32 (last-position logits within
+    1e-3 of the largest, the same argmax);
+22. the same for paligemma-3b (2.51 B parameters, 18 layers, D 256 over one
+    KV head): seeded (1, 256, 2048) image embeddings, 3 requests of 256
+    image rows plus 64, 768 and 1792 text tokens (no prompt shorter than
+    the image rows, which would change the sequence length); K3 18 x 3
+    times; the f32 cross-check at 1024 tokens;
+23. the same for llama4-scout-17b-a16e at full width and 8 of its 48 layers
+    (19.69 B parameters, 39.4 GB; 16 experts top-1 and a shared expert): 4
+    requests of 128-2048 tokens, K3 8 x 4 times, the assignments each
+    request's prefill and decode dropped at capacity; the f32 cross-check
+    at 2 layers and 1024 tokens;
+24. the int8 KV cache on qwen1.5-32b at full width and 16 of its 64 layers:
+    one 2048-token prefill (K3 16 times), its k/v quantized by
+    ``quantize_kv`` into an int8 ``init_cache`` of 2080 positions, 32
+    ``decode_fn`` steps over it and the same tokens over a bf16 cache
+    (ms/token, the logits' distance, the profiler's view of each), and
+    ``decode_attention_q8`` held against naive attention over the
+    dequantized cache in f32 at these shapes; the cache's bytes a token and
+    layer in int8 and bf16 (``ServeEngine.generate`` takes no int8 cache,
+    as in the reference); then phase 19 for whisper's and llama4's longest
+    prefill (whisper's with its 1500-frame encoder), each capture's K3
+    calls held against the launches its phase counted a request.
 
-After each model's serving phase, the profiler's kernel time of one prefill
+The models are freed between phases.  After each model's serving phase,
+the profiler's kernel time of one prefill
 of its longest prompt (with each kernel's share) and of 8 decode steps, beside
 the host clock and the device's idle share.
 Each serving and training phase sets every kernel's launch count to 0 just
@@ -137,6 +169,7 @@ the script exits with 1.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -177,10 +210,18 @@ UNIT_GRID += [(1, sq, sk, h, kvh, d) for d in (32, 64, 128, 256)
               for sq, sk, h, kvh in ((127, 127, 16, 1), (128, 129, 4, 4),
                                      (129, 128, 16, 1), (2047, 2047, 2, 2),
                                      (127, 2047, 16, 1), (2047, 129, 16, 16))]
-# K3 timing: chatglm3-6b's and zamba2-1.2b's attention at S = 2048 and 512:
-# (label, H, KVH, D, S)
-FLASH_TIMING = [("chatglm3-6b", 32, 2, 128, 2048), ("zamba2-1.2b", 32, 32, 64, 2048),
-                ("chatglm3-6b", 32, 2, 128, 512), ("zamba2-1.2b", 32, 32, 64, 512)]
+# K3 timing: chatglm3-6b's and zamba2-1.2b's attention at S = 2048 and 512,
+# then the moe, vlm and audio families' new shapes: whisper-large-v3's
+# encoder (no mask, S 1500), paligemma-3b's (D 256, one KV head) and
+# llama4-scout's (40 heads over 8 KV heads) at S 2048: (label, H, KVH, D, S,
+# causal)
+FLASH_TIMING = [("chatglm3-6b", 32, 2, 128, 2048, True),
+                ("zamba2-1.2b", 32, 32, 64, 2048, True),
+                ("chatglm3-6b", 32, 2, 128, 512, True),
+                ("zamba2-1.2b", 32, 32, 64, 512, True),
+                ("whisper-large-v3 encoder", 20, 20, 64, 1500, False),
+                ("paligemma-3b", 8, 1, 256, 2048, True),
+                ("llama4-scout-17b-a16e", 40, 8, 128, 2048, True)]
 FLASH_REPEATS = 30
 # K4 vs plain: f32 outputs (y_diag from f32 inputs, states, gamma) at 1e-3:
 # both compute in f32, but the kernel's cumsum is a warp scan and its dot
@@ -227,6 +268,18 @@ SSM_PROMPT_LENS = (128, 512, 1000, 2048)
 HYBRID_PROMPT_LENS = (512, 2048)
 HYBRID_NEW_TOKENS = 16
 PEAK_F64_FLOPS = 34e12         # CUDA-core f64 (NVIDIA data sheet, SXM)
+# phases 21-24: the audio, vlm and moe families and the int8 KV cache at
+# full width; llama4-scout and qwen1.5-32b cut in depth to fit one card
+WHISPER_ARCH, WHISPER_PROMPT_LENS = "whisper-large-v3", (64, 224, 448)
+# paligemma: 256 image rows and 64, 768 and 1792 text tokens (a prompt
+# shorter than the image rows would change the sequence length)
+VLM_ARCH, VLM_PROMPT_LENS = "paligemma-3b", (320, 1024, 2048)
+MOE_ARCH, MOE_LAYERS, MOE_XCHECK_LAYERS = "llama4-scout-17b-a16e", 8, 2
+Q8_ARCH, Q8_LAYERS, Q8_PROMPT = "qwen1.5-32b", 16, 2048
+# decode_attention_q8 against naive attention over the dequantized cache,
+# both in f32 (summation order only): the reference's f32 kernel-test
+# tolerance, |err| <= 2e-5 + 2e-5|naive|
+Q8_TOL = 2e-5
 # K1 vs plain: the reference's tolerance (tests/test_kernels.py:126-128),
 # |err| <= 1e-12 + 1e-12|plain|; poly16 in f32 at 1e-5 (the kernel fuses
 # each Horner step into one FMA, the plain version rounds twice).  K2: the
@@ -758,6 +811,113 @@ CUSTOM_OPS = {"flash_attention": "flash_attention",
 CAPTURE_MEM_BYTES = 1 << 20
 
 
+def custom_calls(gm) -> dict:
+    """The kernel custom ops a captured graph holds, by launch counter."""
+    got = dict.fromkeys(CUSTOM_OPS, 0)
+    for n in gm.graph.nodes:
+        if getattr(n.target, "namespace", None) == "repro_torch":
+            name = n.target.overloadpacket.__name__
+            got[next(k for k, v in CUSTOM_OPS.items() if v == name)] += 1
+    return got
+
+
+def fake_params(model, dtype, dev):
+    """The model's parameters as tensors of the current fake mode."""
+    import torch
+
+    from repro_torch.models import params as pr
+    return pr.tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
+                                             device=dev),
+                       model.param_specs())
+
+
+def prefill_of(model):
+    import torch
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return model.prefill_fn(params, batch)
+    return prefill
+
+
+def capture_and_simulate(dev, hw, label, fn, make_args, want, measured,
+                         programs=None) -> dict:
+    """Capture ``fn(*make_args())`` over fake tensors, hold its kernel custom
+    calls against ``want`` (the launches its phase counted), simulate it
+    against ``hw`` with both engines and print it beside ``measured``
+    (kernel ms, host ms).  Appends (label, Program) to ``programs``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import aten
+    from repro_torch.core.simulate import simulate
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    with FakeTensorMode():
+        args = make_args()
+    t0 = time.perf_counter()
+    gm = aten.capture(fn, *args)
+    t_capture = time.perf_counter() - t0
+    taken = torch.cuda.max_memory_allocated() - mem0 if on_card else 0
+    if taken > CAPTURE_MEM_BYTES:
+        fail(f"{label}: the capture took {taken} B of device memory")
+    calls = custom_calls(gm)
+    print(f"[fig3-step] {label}: captured {len(gm.graph.nodes)} graph "
+          f"nodes in {t_capture:.1f} s, {taken} B of device memory at "
+          f"its peak; kernel custom calls {calls} (want {want})")
+    if calls != want:
+        fail(f"{label}: the capture holds kernel calls {calls}, the "
+             f"phase launched {want}")
+    t0 = time.perf_counter()
+    rep = simulate(gm, hw=hw, compute_dtype="bf16", engine="both",
+                   title=label)
+    t_sim = time.perf_counter() - t0
+    del gm
+    if programs is not None:
+        programs.append((label, rep.program))
+    classes = rep.program.by_class()
+    occ_ms, sched_ms = rep.engine.t_est * 1e3, rep.schedule.t_est * 1e3
+    kernel_ms, host_ms = measured
+    row = {"capture": label, "ops": len(rep.program.ops),
+           "custom_calls": calls,
+           "gflop": {k: v["flops"] / 1e9 for k, v in classes.items()},
+           "gb": {k: v["bytes"] / 1e9 for k, v in classes.items()},
+           "occupancy_ms": occ_ms, "schedule_ms": sched_ms,
+           "kernel_ms": kernel_ms, "host_ms": host_ms,
+           "capture_s": t_capture, "simulate_s": t_sim}
+    diffs = []
+    for sim_key, sim_ms in (("occupancy", occ_ms), ("schedule", sched_ms)):
+        for meas_key, meas_ms in (("kernel", kernel_ms), ("host", host_ms)):
+            d = (100 * (sim_ms - meas_ms) / meas_ms
+                 if meas_ms else None)
+            row[f"{sim_key}_vs_{meas_key}_pct"] = d
+            diffs.append(f"{sim_key} vs {meas_key} "
+                         + ("not measured" if d is None else f"{d:+.1f} %"))
+    print(f"[fig3-step] {label}: {row['ops']} ops; GFLOP "
+          + ", ".join(f"{k} {v:.2f}" for k, v in row["gflop"].items())
+          + "; GB " + ", ".join(f"{k} {v:.3f}"
+                                for k, v in row["gb"].items())
+          + f"; simulated {occ_ms:.2f} ms (occupancy), {sched_ms:.2f} ms "
+          f"(schedule); measured "
+          + ("not measured" if kernel_ms is None else
+             f"{kernel_ms:.2f} ms kernel time, {host_ms:.2f} ms host "
+             f"clock")
+          + "; " + ", ".join(diffs)
+          + f"; capture {t_capture:.1f} s, simulate {t_sim:.1f} s")
+    return row
+
+
+def traced(record, kernel_key, host_key):
+    """(kernel ms, host ms) of a phase's traced prefill or step."""
+    tr = record["trace"]
+    if not isinstance(tr, dict):
+        return None, None
+    return tr[kernel_key], tr[host_key]
+
+
 def fig3_steps(dev, hw, servings, trainings, timed, read_launches,
                programs) -> list:
     """Phase 19, Fig. 3 at the scale of a model step: capture the two
@@ -773,98 +933,16 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches,
     Program), for phase 20."""
     import numpy as np
     import torch
-    from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
-    from repro_torch.core import aten
-    from repro_torch.core.simulate import simulate
-    from repro_torch.models import params as pr
     from repro_torch.models.lm import build_model
     from repro_torch.train.trainer import make_train_step
 
     launches_before = read_launches()
 
-    def custom_calls(gm):
-        got = dict.fromkeys(CUSTOM_OPS, 0)
-        for n in gm.graph.nodes:
-            if getattr(n.target, "namespace", None) == "repro_torch":
-                name = n.target.overloadpacket.__name__
-                got[next(k for k, v in CUSTOM_OPS.items() if v == name)] += 1
-        return got
-
-    def fake_params(model, dtype):
-        return pr.tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
-                                                 device=dev),
-                           model.param_specs())
-
-    def prefill_of(model):
-        def prefill(params, batch):
-            with torch.no_grad():
-                return model.prefill_fn(params, batch)
-        return prefill
-
     def one(label, fn, make_args, want, measured):
-        on_card = dev.type == "cuda"
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-            mem0 = torch.cuda.memory_allocated()
-        with FakeTensorMode():
-            args = make_args()
-        t0 = time.perf_counter()
-        gm = aten.capture(fn, *args)
-        t_capture = time.perf_counter() - t0
-        taken = torch.cuda.max_memory_allocated() - mem0 if on_card else 0
-        if taken > CAPTURE_MEM_BYTES:
-            fail(f"{label}: the capture took {taken} B of device memory")
-        calls = custom_calls(gm)
-        print(f"[fig3-step] {label}: captured {len(gm.graph.nodes)} graph "
-              f"nodes in {t_capture:.1f} s, {taken} B of device memory at "
-              f"its peak; kernel custom calls {calls} (want {want})")
-        if calls != want:
-            fail(f"{label}: the capture holds kernel calls {calls}, the "
-                 f"phase launched {want}")
-        t0 = time.perf_counter()
-        rep = simulate(gm, hw=hw, compute_dtype="bf16", engine="both",
-                       title=label)
-        t_sim = time.perf_counter() - t0
-        del gm
-        programs.append((label, rep.program))
-        classes = rep.program.by_class()
-        occ_ms, sched_ms = rep.engine.t_est * 1e3, rep.schedule.t_est * 1e3
-        kernel_ms, host_ms = measured
-        row = {"capture": label, "ops": len(rep.program.ops),
-               "custom_calls": calls,
-               "gflop": {k: v["flops"] / 1e9 for k, v in classes.items()},
-               "gb": {k: v["bytes"] / 1e9 for k, v in classes.items()},
-               "occupancy_ms": occ_ms, "schedule_ms": sched_ms,
-               "kernel_ms": kernel_ms, "host_ms": host_ms,
-               "capture_s": t_capture, "simulate_s": t_sim}
-        diffs = []
-        for sim_key, sim_ms in (("occupancy", occ_ms), ("schedule", sched_ms)):
-            for meas_key, meas_ms in (("kernel", kernel_ms), ("host", host_ms)):
-                d = (100 * (sim_ms - meas_ms) / meas_ms
-                     if meas_ms else None)
-                row[f"{sim_key}_vs_{meas_key}_pct"] = d
-                diffs.append(f"{sim_key} vs {meas_key} "
-                             + ("not measured" if d is None else f"{d:+.1f} %"))
-        print(f"[fig3-step] {label}: {row['ops']} ops; GFLOP "
-              + ", ".join(f"{k} {v:.2f}" for k, v in row["gflop"].items())
-              + "; GB " + ", ".join(f"{k} {v:.3f}"
-                                    for k, v in row["gb"].items())
-              + f"; simulated {occ_ms:.2f} ms (occupancy), {sched_ms:.2f} ms "
-              f"(schedule); measured "
-              + ("not measured" if kernel_ms is None else
-                 f"{kernel_ms:.2f} ms kernel time, {host_ms:.2f} ms host "
-                 f"clock")
-              + "; " + ", ".join(diffs)
-              + f"; capture {t_capture:.1f} s, simulate {t_sim:.1f} s")
-        return row
-
-    def traced(record, kernel_key, host_key):
-        tr = record["trace"]
-        if not isinstance(tr, dict):
-            return None, None
-        return tr[kernel_key], tr[host_key]
+        return capture_and_simulate(dev, hw, label, fn, make_args, want,
+                                    measured, programs)
 
     rows = []
     # the training steps: RunConfig's defaults, the kernel path of phases
@@ -879,7 +957,7 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches,
         dtype = getattr(torch, run.param_dtype)
 
         def args(model=model, opt_init=opt_init, dtype=dtype, batch=batch):
-            params = fake_params(model, dtype)
+            params = fake_params(model, dtype, dev)
             return (params, opt_init(params),
                     {"tokens": torch.zeros((batch, TRAIN_SEQ),
                                            dtype=torch.long, device=dev)})
@@ -923,7 +1001,7 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches,
                 calls = dict.fromkeys(CUSTOM_OPS, 0)
             rows.append(one(
                 f"{arch} prefill {n}, {path} path", prefill_of(model),
-                lambda model=model: (fake_params(model, torch.bfloat16),
+                lambda model=model: (fake_params(model, torch.bfloat16, dev),
                                      *args()), calls, measured))
             gc.collect()
     if read_launches() != launches_before:
@@ -1269,8 +1347,8 @@ def main() -> int:
                 compare(*shape, causal, dtype)
     cfg = ARCHS[ARCH]
     main_err, main_used = map(max, zip(*(
-        compare(1, s, s, h, kvh, d, True, "bfloat16", bshd=True)
-        for _, h, kvh, d, s in FLASH_TIMING)))
+        compare(1, s, s, h, kvh, d, causal, "bfloat16", bshd=True)
+        for _, h, kvh, d, s, causal in FLASH_TIMING)))
 
     # 3b. K4 vs plain: the reference test's distributions, made on the card
     def ssd_inputs(B, L, H, P, N, dtype, broadcast):
@@ -1493,12 +1571,16 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def serve_full(arch, prompt_lens, new_tokens, want):
+    def serve_full(arch, prompt_lens, new_tokens, want, cfg=None,
+                   extra_inputs=None):
         """Seeded bf16 weights, one request at a time through
-        ServeEngine.generate; checks each kernel's launch count against
-        ``want`` and every token's range.  Returns (serving record, model,
-        params, engine, prompts)."""
-        cfg = ARCHS[arch]
+        ServeEngine.generate (with ``extra_inputs``, the vlm's image
+        embeddings or the audio's frames); checks each kernel's launch
+        count against ``want`` and every token's range; for an MoE model
+        counts the assignments each request's prefill and decode dropped at
+        capacity.  ``cfg`` overrides the registry's (a depth cut).  Returns
+        (serving record, model, params, engine, prompts)."""
+        cfg = cfg or ARCHS[arch]
         model = build_model(cfg, attn_impl="flash", ssd_impl="kernel")
         t0 = time.perf_counter()
         params = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -1506,8 +1588,8 @@ def main() -> int:
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in pr.leaves(params))
         print(f"[serve] {arch}: {n_params / 1e9:.3f} B parameters in bf16 "
-              f"({n_params * 2 / 1e9:.2f} GB), drawn in "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"({n_params * 2 / 1e9:.2f} GB; {cfg.n_layers} layers), drawn "
+              f"in {time.perf_counter() - t0:.1f} s")
         if n_params != cfg.param_count():
             fail(f"{n_params} parameters, config says {cfg.param_count()}")
         rng = np.random.default_rng(0)
@@ -1515,17 +1597,29 @@ def main() -> int:
                    for n in prompt_lens]
         engine = ServeEngine(model, params,
                              max_seq=max(prompt_lens) + new_tokens, device=dev)
-        engine.generate([prompts[0][:16]], max_new_tokens=2)  # warm-up
+        # warm-up; a vlm prompt holds at least its image rows
+        engine.generate([prompts[0][:max(16, cfg.n_img_tokens)]],
+                        max_new_tokens=2, extra_inputs=extra_inputs)
         torch.cuda.synchronize()
+        if cfg.moe is not None:
+            model.moe_dropped = []     # one 0-d tensor a layer and call
+        drops = []
         reset_launches()
         timings, peaks, outs = [], [], []
         t_all = time.perf_counter()
         for prompt in prompts:          # one call each: peak memory per request
             torch.cuda.reset_peak_memory_stats()
-            outs += engine.generate([prompt], max_new_tokens=new_tokens)
+            outs += engine.generate([prompt], max_new_tokens=new_tokens,
+                                    extra_inputs=extra_inputs)
             peaks.append(torch.cuda.max_memory_allocated())
             timings += engine.timings
+            if model.moe_dropped is not None:
+                per_call = [int(t) for t in model.moe_dropped]
+                model.moe_dropped.clear()
+                drops.append({"prefill": sum(per_call[:cfg.n_layers]),
+                              "decode": sum(per_call[cfg.n_layers:])})
         wall = time.perf_counter() - t_all
+        model.moe_dropped = None
         got = read_launches()
         print(f"[serve] {arch} launches: {got} (want {want})")
         if got != want:
@@ -1550,7 +1644,16 @@ def main() -> int:
             "prefill_ms": [t.prefill_s * 1e3 for t in timings],
             "decode_ms_per_token": [t.decode_s * 1e3 / t.decode_steps
                                     for t in timings],
-            "peak_mem_bytes": peaks, "launches": got}
+            "peak_mem_bytes": peaks, "launches": got,
+            "layers": cfg.n_layers}
+        if drops:
+            record["moe_dropped"] = drops
+            k = cfg.moe.top_k
+            for n, d in zip(prompt_lens, drops):
+                print(f"[serve] {arch} prompt {n:5d}: capacity dropped "
+                      f"{d['prefill']} of {n * k * cfg.n_layers} prefill "
+                      f"assignments ({n} tokens x top-{k} x {cfg.n_layers} "
+                      f"layers) and {d['decode']} in decode")
         print(f"[serve] {arch}: {new} new tokens in {wall:.3f} s "
               f"({record['tokens_per_s']:.2f} tokens/s)")
         return record, model, params, engine, prompts
@@ -1581,18 +1684,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    def trace_serving(arch, model, params, engine, prompt, steps=8):
+    def trace_serving(arch, model, params, engine, prompt, steps=8,
+                      extra_inputs=None):
         """Where the device time goes: one prefill of ``prompt`` and
         ``steps`` decode steps after it, each on the host clock unprofiled,
         then under the profiler (kernel time, each port kernel's share, the
         number of kernels, the device's idle share)."""
+        extra = extra_inputs or {}
         with torch.inference_mode():
             toks = torch.tensor([prompt], device=dev)
-            _, cache = engine._prefill_one(prompt)
+            _, cache = engine._prefill_one(prompt, extra)
             tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
 
             def prefill():
-                model.prefill_fn(params, {"tokens": toks})
+                model.prefill_fn(params, {"tokens": toks, **extra})
 
             def decode():
                 for i in range(steps):
@@ -1668,24 +1773,26 @@ def main() -> int:
           f"previous call, CUDA events around the call alone; q, k, v "
           f"(B,S,H,D) views as the models pass them")
     flash_rows = []
-    for label, H, KVH, D, S in FLASH_TIMING:
+    for label, H, KVH, D, S, causal in FLASH_TIMING:
         q, k, v = (torch.randn((1, S, n, D), generator=gen, device=dev)
                    .bfloat16().transpose(1, 2) for n in (H, KVH, KVH))
         kernel_ms = cal._median_time(
-            lambda q: fa.flash_attention_bhsd(q, k, v, causal=True), (q,),
+            lambda q: fa.flash_attention_bhsd(q, k, v, causal=causal), (q,),
             FLASH_REPEATS) * 1e3
         plain_ms = cal._median_time(
-            lambda q: fa.flash_attention_plain(q, k, v, causal=True), (q,),
+            lambda q: fa.flash_attention_plain(q, k, v, causal=causal), (q,),
             3) * 1e3
         library_ms = cal._median_time(
-            lambda q: sdpa(q, k, v, is_causal=True, enable_gqa=True), (q,),
+            lambda q: sdpa(q, k, v, is_causal=causal, enable_gqa=True), (q,),
             FLASH_REPEATS) * 1e3
-        flops = 4 * H * D * (S * (S + 1) // 2)   # q.k and p.v, causal pairs
+        pairs = S * (S + 1) // 2 if causal else S * S   # (query, key) pairs
+        flops = 4 * H * D * pairs                # q.k and p.v
         nbytes = 2 * (2 * H * S * D + 2 * KVH * S * D)   # q, o; k, v
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         row = {"shape": f"{label} B=1 H={H} KVH={KVH} S={S} D={D} bf16 "
-                        f"causal", "ms": kernel_ms, "plain_ms": plain_ms,
+                        f"{'causal' if causal else 'no mask'}",
+               "ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "gflop": flops / 1e9, "mb": nbytes / 1e6}
@@ -2071,18 +2178,330 @@ def main() -> int:
     # 20. the node engine and the simulator's own scan on the card
     node_phase = node_engine(dev, fitted_h100, captures)
 
+    def int8_decode(cfg):
+        """Phase 24: prefill one Q8_PROMPT-token prompt through K3, quantize
+        its k/v with ``quantize_kv`` into an int8 ``init_cache`` of
+        Q8_PROMPT + NEW_TOKENS positions, and run NEW_TOKENS ``decode_fn``
+        steps over it; decode the same tokens over a bf16 cache for the
+        time and the logits' distance; hold ``decode_attention_q8`` at these
+        shapes against naive attention over the dequantized cache in f32;
+        print the cache's bytes in int8 and bf16."""
+        from repro_torch.models.attention import (decode_attention_q8,
+                                                  naive_attention,
+                                                  quantize_kv)
+        from repro_torch.serve.kvcache import cache_bytes, kv_token_bytes
+        arch = cfg.name
+        model = build_model(cfg, attn_impl="flash", kv_cache_dtype="int8")
+        bf16_model = build_model(cfg, attn_impl="flash")
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in pr.leaves(params))
+        print(f"[int8] {arch}: {n_params / 1e9:.3f} B parameters in bf16 "
+              f"({cfg.n_layers} of {ARCHS[arch].n_layers} layers), drawn in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if n_params != cfg.param_count():
+            fail(f"{n_params} parameters, config says {cfg.param_count()}")
+        smax = Q8_PROMPT + NEW_TOKENS
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(1, Q8_PROMPT))).to(dev)
+
+        def decode(m, cache, first, feed=None):
+            """NEW_TOKENS greedy steps from token ``first`` (or the tokens
+            ``feed``): (f32 logits of each step, tokens, seconds)."""
+            tok, out, toks = first, [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(NEW_TOKENS):
+                if feed is not None:
+                    tok = feed[i]
+                lg, cache = m.decode_fn(params, cache, {
+                    "tokens": tok[:, None], "pos": Q8_PROMPT + i})
+                out.append(lg.float())
+                tok = lg.argmax(-1)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            return out, toks, time.perf_counter() - t0
+
+        with torch.inference_mode():
+            model.prefill_fn(params, {"tokens": prompt[:, :16]})  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, pre = model.prefill_fn(params, {"tokens": prompt})
+            cache = model.init_cache(1, smax, device=dev)
+            for name in ("k", "v"):
+                q8, scale = quantize_kv(pre[name])
+                cache[name][:, :, :Q8_PROMPT] = q8
+                cache[f"{name}_scale"][:, :, :Q8_PROMPT] = scale
+            first = logits.argmax(-1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            got = read_launches()
+            q8_logits, toks, q8_s = decode(model, cache, first)
+            peak = torch.cuda.max_memory_allocated()
+            want = {"flash_attention": cfg.n_layers, "ssd_scan": 0,
+                    "ssd_scan_bwd": 0}
+            print(f"[int8] {arch} launches: {got} (want {want})")
+            if got != want:
+                fail(f"{arch} int8: kernel launches {got}, want {want}")
+            tokens = [int(t) for t in toks]
+            if not all(0 <= t < cfg.padded_vocab for t in tokens):
+                fail(f"{arch} int8: tokens {tokens}")
+            # the same tokens over a bf16 cache
+            bcache = bf16_model.init_cache(1, smax, device=dev)
+            for name in ("k", "v"):
+                bcache[name][:, :, :Q8_PROMPT] = pre[name]
+            del pre
+            bf16_logits, _, bf16_s = decode(bf16_model, bcache, first,
+                                            feed=[first] + toks[:-1])
+            rel = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(q8_logits, bf16_logits))
+            same = sum(bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                       for a, b in zip(q8_logits, bf16_logits))
+            del q8_logits, bf16_logits
+
+            # decode_attention_q8 at these shapes, first and last layer
+            qv = torch.randn((1, 1, cfg.n_heads, cfg.head_dim),
+                             generator=fam_gen, device=dev)
+            used, err = 0.0, 0.0
+            for layer in (0, cfg.n_layers - 1):
+                ck, cv, ks, vs = (cache[n][layer] for n in
+                                  ("k", "v", "k_scale", "v_scale"))
+                got_att = decode_attention_q8(qv, ck, cv, ks, vs, smax)
+                want_att = naive_attention(
+                    qv, ck.float() * ks.float()[..., None],
+                    cv.float() * vs.float()[..., None], causal=False)
+                diff = (got_att - want_att).abs()
+                err = max(err, diff.max().item())
+                used = max(used, (diff / (Q8_TOL + Q8_TOL * want_att.abs()))
+                           .max().item())
+
+            # the profiler's view of 8 decode steps over each cache
+            def steps(m, c):
+                def run():
+                    for i in range(8):
+                        m.decode_fn(params, c, {"tokens": first[:, None],
+                                                "pos": Q8_PROMPT + i})
+                return run
+
+            views = {}
+            for tag, m, c in (("int8", model, cache),
+                              ("bf16", bf16_model, bcache)):
+                wall = host_seconds(steps(m, c))
+                busy, _, n_kern = kernel_seconds(steps(m, c))
+                views[tag] = ("not measured" if busy <= 0 else {
+                    "kernels_per_token": n_kern / 8,
+                    "kernel_ms_per_token": busy * 1e3 / 8,
+                    "host_ms_per_token": wall * 1e3 / 8,
+                    "device_idle_share": 1 - busy / wall})
+        per_tok = {"int8": kv_token_bytes(model)[0] / cfg.n_layers,
+                   "bf16": kv_token_bytes(bf16_model)[0] / cfg.n_layers}
+        total = {"int8": cache_bytes(model, 1, smax),
+                 "bf16": cache_bytes(bf16_model, 1, smax)}
+        print(f"[int8] {arch}: prefill {Q8_PROMPT} tokens {prefill_s * 1e3:.2f}"
+              f" ms (K3 and quantize_kv into the int8 cache); decode "
+              f"{q8_s * 1e3 / NEW_TOKENS:.2f} ms/token over the int8 cache, "
+              f"{bf16_s * 1e3 / NEW_TOKENS:.2f} over bf16 (the same tokens); "
+              f"peak memory {peak / 2**30:.3f} GiB; logits int8 vs bf16 "
+              f"max|d|/max {rel:.3e}, same argmax {same} of {NEW_TOKENS}; "
+              f"cache bytes a token and layer {per_tok['int8']:.0f} int8, "
+              f"{per_tok['bf16']:.0f} bf16; whole cache ({smax} positions) "
+              f"{total['int8'] / 2**20:.1f} MiB vs {total['bf16'] / 2**20:.1f}"
+              f" MiB")
+        for tag, v in views.items():
+            if isinstance(v, dict):
+                print(f"[trace] {arch} decode over the {tag} cache: "
+                      f"{v['kernels_per_token']:.0f} kernels and "
+                      f"{v['kernel_ms_per_token']:.2f} ms/token of kernel "
+                      f"time of {v['host_ms_per_token']:.2f} ms/token on the "
+                      f"host clock (device idle {v['device_idle_share']:.1%})")
+            else:
+                print(f"[trace] {arch} decode over the {tag} cache: the "
+                      f"profiler reported no device time: not measured")
+        print(f"[check] decode_attention_q8 (B=1 H={cfg.n_heads} "
+              f"KVH={cfg.n_kv_heads} D={cfg.head_dim} S={smax}, layers 0 and "
+              f"{cfg.n_layers - 1}) vs naive attention over the dequantized "
+              f"cache, f32: max|err| {err:.3e}, {used:.1%} of |err| <= "
+              f"{Q8_TOL:g} + {Q8_TOL:g}|naive| {'ok' if used <= 1 else 'FAIL'}")
+        if used > 1:
+            fail("decode_attention_q8 disagrees with attention over the "
+                 "dequantized cache")
+        del params, cache, bcache
+        return {"arch": f"{arch} int8 KV cache", "params": n_params,
+                "layers": cfg.n_layers, "prompt_tokens": Q8_PROMPT,
+                "new_tokens": NEW_TOKENS, "prefill_ms": prefill_s * 1e3,
+                "decode_ms_per_token_int8": q8_s * 1e3 / NEW_TOKENS,
+                "decode_ms_per_token_bf16": bf16_s * 1e3 / NEW_TOKENS,
+                "peak_mem_bytes": peak, "launches": got, "tokens": tokens,
+                "logits_int8_vs_bf16_rel": rel, "same_argmax_steps": same,
+                "cache_bytes_per_token_layer": per_tok,
+                "cache_bytes": total, "q8_vs_naive_max_abs_err": err,
+                "q8_vs_naive_share_of_tolerance": used, "trace": views}
+
+    def fig3_family_prefill(record):
+        """Phase 19 for a new family: the longest prompt's prefill on the
+        kernel path captured at the phase's width and depth (whisper with
+        its 1500-frame encoder), its K3 custom calls held against the
+        launches the phase counted a request, simulated against the fitted
+        H100 beside the phase's traced prefill."""
+        arch = record["arch"]
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=record["layers"])
+        n = max(record["prompt_tokens"])
+        want = {k: v // record["requests"]
+                for k, v in record["launches"].items()}
+        if want != {"flash_attention": cfg.n_layers + cfg.n_encoder_layers,
+                    "ssd_scan": 0, "ssd_scan_bwd": 0}:
+            fail(f"{arch}: serving launches {record['launches']}")
+        model = build_model(cfg, attn_impl="flash")
+
+        def args():
+            batch = {"tokens": torch.zeros((1, n), dtype=torch.long,
+                                           device=dev)}
+            for name, spec in model.input_specs(
+                    ShapeConfig("p", n, 1, "prefill")).items():
+                if name != "tokens":
+                    batch[name] = torch.empty(spec.shape,
+                                              dtype=torch.bfloat16,
+                                              device=dev)
+            return fake_params(model, torch.bfloat16, dev), batch
+
+        before = read_launches()
+        row = capture_and_simulate(
+            dev, fitted_h100, f"{arch} ({cfg.n_layers} layers) prefill {n}, "
+            f"kernel path", prefill_of(model), args, want,
+            traced(record, "prefill_kernel_ms", "prefill_host_ms"))
+        if read_launches() != before:
+            fail(f"the capture moved the launch counters: {before} -> "
+                 f"{read_launches()}")
+        return row
+
+    # 21.-24. the audio, vlm and moe families, the int8 KV cache ----------
+    def phase_start(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[phase] {label}")
+        return time.perf_counter()
+
+    def phase_end(label, t0, record):
+        record["phase_s"] = time.perf_counter() - t0
+        print(f"[phase] {label}: {record['phase_s']:.1f} s")
+
+    def xcheck_f32(arch, cfg, prompt, extra):
+        """Last-position logits through K3 (``flash``) against ``blocked``
+        attention, the serving phases' seeded weights drawn in f32 (the
+        same draws before their bf16 rounding): summation order only, so
+        within XCHECK_F32_TOL of the largest logit (1e-4 held at two layers
+        in the CPU tests, test_torch_lm_families.py), and the same
+        argmax."""
+        model = build_model(cfg, attn_impl="flash")
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.float32)
+        batch = {"tokens": torch.tensor([prompt], device=dev),
+                 **{k: v.float() for k, v in extra.items()}}
+        with torch.inference_mode():
+            lf, _ = model.prefill_fn(params, batch)
+            lb, _ = build_model(cfg, attn_impl="blocked").prefill_fn(params,
+                                                                     batch)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (torch.isfinite(lf).all() and torch.isfinite(lb).all()):
+            fail(f"{arch}: non-finite logits")
+        rel = ((lf - lb).abs().max() / lb.abs().max()).item()
+        same_top = bool(torch.equal(lf.argmax(-1), lb.argmax(-1)))
+        print(f"[xcheck] {arch} ({cfg.n_layers} layers, f32) "
+              f"{len(prompt)}-token prefill, flash vs blocked: "
+              f"max|dlogit|/max|logit| {rel:.3e} (tol {XCHECK_F32_TOL:g}); "
+              f"same argmax {same_top}")
+        if rel > XCHECK_F32_TOL or not same_top:
+            fail(f"{arch}: flash and blocked prefill logits differ in f32 "
+                 f"by {rel:.3e} (same argmax {same_top})")
+        return {"layers": cfg.n_layers, "prompt_tokens": len(prompt),
+                "rel_err": rel, "same_argmax": same_top}
+
+    def serve_family(arch, cfg, prompt_lens, extra, xcheck_prompt,
+                     xcheck_cfg=None):
+        """One family's phase: serving with its K3 launches counted, the
+        profiler's view of its longest prompt, and the f32 cross-check."""
+        n_k3 = cfg.n_layers + cfg.n_encoder_layers
+        record, model, params, engine, prompts = serve_full(
+            arch, prompt_lens, NEW_TOKENS,
+            {"flash_attention": n_k3 * len(prompt_lens), "ssd_scan": 0,
+             "ssd_scan_bwd": 0}, cfg=cfg, extra_inputs=extra)
+        record["trace"] = trace_serving(arch, model, params, engine,
+                                        prompts[-1], extra_inputs=extra)
+        del model, params, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        record["xcheck"] = xcheck_f32(arch, xcheck_cfg or cfg,
+                                      prompts[xcheck_prompt], extra)
+        return record
+
+    family_servings = []
+    fam_gen = torch.Generator(device=dev).manual_seed(1)
+    # 21. whisper-large-v3: 32 encoder layers over 1500 frames (K3, no
+    # mask) and 32 decoder layers (K3 causal; cross-attention blocked)
+    t_phase = phase_start(f"21 {WHISPER_ARCH}")
+    wcfg = ARCHS[WHISPER_ARCH]
+    frames = torch.randn((1, wcfg.n_frames, wcfg.d_model), generator=fam_gen,
+                         device=dev).bfloat16()
+    record = serve_family(WHISPER_ARCH, wcfg, WHISPER_PROMPT_LENS,
+                          {"frames": frames}, xcheck_prompt=-1)
+    phase_end("21", t_phase, record)
+    family_servings.append(record)
+    del frames
+
+    # 22. paligemma-3b: 256 image rows, D 256 over one KV head
+    t_phase = phase_start(f"22 {VLM_ARCH}")
+    vcfg = ARCHS[VLM_ARCH]
+    img = torch.randn((1, vcfg.n_img_tokens, vcfg.d_model), generator=fam_gen,
+                      device=dev).bfloat16()
+    record = serve_family(VLM_ARCH, vcfg, VLM_PROMPT_LENS,
+                          {"img_embeds": img}, xcheck_prompt=1)
+    phase_end("22", t_phase, record)
+    family_servings.append(record)
+    del img
+
+    # 23. llama4-scout-17b-a16e: 8 of its 48 layers at full width; the f32
+    # cross-check at 2 layers
+    t_phase = phase_start(f"23 {MOE_ARCH}")
+    mcfg = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_LAYERS)
+    record = serve_family(
+        MOE_ARCH, mcfg, PROMPT_LENS, {}, xcheck_prompt=2,
+        xcheck_cfg=dataclasses.replace(mcfg, n_layers=MOE_XCHECK_LAYERS))
+    record["depth_cut"] = f"{MOE_LAYERS} of {ARCHS[MOE_ARCH].n_layers} layers"
+    phase_end("23", t_phase, record)
+    family_servings.append(record)
+
+    # 24. the int8 KV cache: qwen1.5-32b, 16 of 64 layers
+    t_phase = phase_start(f"24 {Q8_ARCH} int8 KV cache")
+    int8_record = int8_decode(dataclasses.replace(ARCHS[Q8_ARCH],
+                                                  n_layers=Q8_LAYERS))
+    phase_end("24", t_phase, int8_record)
+
+    # 19, continued: the new families' prefills captured and simulated
+    for record in family_servings:
+        if record["arch"] in (WHISPER_ARCH, MOE_ARCH):
+            step_sims.append(fig3_family_prefill(record))
+    gc.collect()
+
     if failures:
         fail("; ".join(failures))
     scan_row = next(r for r in node_phase["kernel_vs_plain"]
                     if r["case"] == f"J2 shard {SCAN_STEP}")
-    for record in servings:
+    for record in servings + family_servings:
         print(json.dumps({"serving": record}))
+    print(json.dumps({"int8_kv_cache": int8_record}))
     for record in trainings:
         print(json.dumps({"training": record}))
     print(json.dumps({"calibration": calibration}))
     print(json.dumps({"fig3_steps": step_sims}))
     print(json.dumps({"node_engine": node_phase}))
-    by_path = {k: {r["arch"]: r["launches"][k] for r in servings + trainings}
+    by_path = {k: {r["arch"]: r["launches"][k] for r in
+                   servings + trainings + family_servings + [int8_record]}
                for k in KERNELS}
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",

@@ -42,12 +42,23 @@ under DESIGN.md §9's rules restated for eager ATen:
   because eager PyTorch launches one: it reads its operands and writes its
   outputs.  An operand counts the elements its view touches: a stride-0
   ``expand`` reads its base once.
+* **What the MoE, vlm, audio and int8 paths add.**  ``sort`` and ``topk``
+  -> ``sort``, the reference's opcode for ``argsort``/``top_k``: data
+  movement, charged its bytes; ``searchsorted`` -> ``compare``, an
+  elementwise op of ceil(log2(N + 1)) compares an output element (a binary
+  search over the N sorted entries), which reads both operands;
+  ``index_add`` (out of place) -> ``scatter``, ``repeat_interleave`` ->
+  ``gather``, ``any`` -> ``reduce``, ``round`` -> ``round-nearest-even``;
+  ``scatter_`` and ``index_add_`` write in place (I-3 below).  The int8 and
+  f16 casts of the quantized cache are ``_to_copy`` -> ``convert`` with
+  their real dtypes (``s8``, ``f16``).
 * **I-2.**  An operand reached through a ``slice`` or ``select`` reads the
   view's elements, not the base's.  A gather reads the gathered rows and
   its indices.
 * **I-3.**  An in-place write into a view (``copy_``, ``index_copy_``,
-  ``index_put_``, as into a cache) costs the updated region, read and
-  written; later readers of the buffer depend on it.
+  ``index_put_``, ``scatter_``, ``index_add_``, as into a cache or the MoE
+  combine) costs the updated region, read and written; later readers of
+  the buffer depend on it.
 * **I-4 has nothing to do:** Python loops (the layers, ``ops.ssd_scan``'s
   chunk recurrence) arrive unrolled, every op with count 1.
 * **I-5 does not hold in eager.**  A ``_to_copy`` feeding a ``mm`` is a
@@ -111,9 +122,14 @@ OPCODES = {
     "index_put": "scatter", "slice_scatter": "scatter",
     "cat": "concatenate", "constant_pad_nd": "pad", "clone": "copy",
     "lift_fresh_copy": "copy", "flip": "reverse",
+    # MoE routing and the int8 cache
+    "sort": "sort", "topk": "sort", "searchsorted": "compare",
+    "index_add": "scatter", "repeat_interleave": "gather", "any": "reduce",
+    "round": "round-nearest-even",
 }
 # in-place writes into a buffer (I-3): the region is read and written
-REGION_WRITES = {"copy_", "index_copy_", "index_put_"}
+REGION_WRITES = {"copy_", "index_copy_", "index_put_", "scatter_",
+                 "index_add_"}
 
 # composites eager PyTorch runs as one kernel: kept whole (not decomposed)
 # and costed as one fusion, with per-output-element opcode counts
@@ -301,6 +317,10 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
         elif cls == "transcendental":
             stat.flops = stat.transcendentals = nelems
             stat.trans_by_opcode = {opcode: nelems}
+        elif name == "searchsorted":   # a binary search an output element
+            steps = math.ceil(math.log2(tensor_args[0][1].shape[-1] + 1))
+            stat.flops = nelems * steps
+            stat.vpu_by_opcode = {opcode: stat.flops}
         elif cls == "elementwise":
             stat.flops = nelems
             stat.vpu_by_opcode = {opcode: nelems}

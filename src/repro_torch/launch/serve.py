@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+        --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --requests 2 --prompt-len 16 --max-new 8
 
 bf16 parameters; prefill through the kernels: flash attention (K3) and the
-SSD intra-chunk kernel (K4).  Runs on ``cuda`` unless ``--device cpu`` is
-given.
+SSD intra-chunk kernel (K4).  Every registry architecture serves: the vlm
+and audio families get zero ``img_embeds``/``frames`` in the parameters'
+dtype, as the reference's launcher passes zeros.  Runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCHS, reduced_config
+from ..configs import ARCHS, ShapeConfig, reduced_config
 from ..device import resolve
 from ..models.lm import build_model
 from ..serve.engine import ServeEngine
@@ -49,12 +53,19 @@ def main(argv=None) -> int:
                                              size=args.prompt_len)]
                for _ in range(args.requests)]
 
+    # the vlm/audio inputs of one request, zeros as in the reference
+    specs = model.input_specs(ShapeConfig("serve", args.prompt_len, 1,
+                                          "prefill"))
+    extra = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+             for k, v in specs.items() if k != "tokens"}
+
     engine = ServeEngine(model, params,
                          max_seq=args.prompt_len + args.max_new,
                          temperature=args.temperature, seed=args.seed,
                          device=device)
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=args.max_new)
+    outs = engine.generate(prompts, max_new_tokens=args.max_new,
+                           extra_inputs=extra)
     dt = time.perf_counter() - t0
     total_new = sum(len(o) for o in outs)
     for i, o in enumerate(outs):

@@ -65,9 +65,15 @@ def train_loop(model: LM, run: RunConfig, *, n_steps: int,
                             seq_len=shape.seq_len,
                             global_batch=shape.global_batch, seed=seed)
 
+    # the vlm and audio inputs: zeros in the compute dtype, as the reference
+    # passes them
+    specs = model.input_specs(shape, getattr(torch, run.compute_dtype))
+    extra = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+             for k, v in specs.items() if k != "tokens"}
+
     def batch_fn(step: int):
         return {"tokens": torch.from_numpy(ds.batch(step)["tokens"]).to(
-            dev, torch.long)}
+            dev, torch.long), **extra}
 
     def step_fn(state, batch):
         params, opt_state = state

@@ -1,12 +1,16 @@
 """GQA attention: train/prefill (naive, blocked, flash) + cached decode.
 
-Counterpart of ``repro.models.attention`` for self-attention:
+Counterpart of ``repro.models.attention``, self- and cross-attention:
 
 * ``blocked_attention`` — online softmax over KV blocks in plain PyTorch, the
   reference's default path;
 * ``impl="flash"`` — ``kernels.ops.flash_attention``: the Hopper kernel for
   CUDA tensors, its plain version for CPU tensors;
-* ``decode_attention`` — single-token attention against a KV cache.
+* ``decode_attention`` — single-token attention against a KV cache;
+* ``quantize_kv`` / ``decode_attention_q8`` — the int8 KV cache: per-(token,
+  head) symmetric int8 values with f16 scales, which decode applies to the
+  scores and the probabilities (the int8 tensors feed the products as they
+  are, never dequantized first).
 
 Where the reference asks XLA for f32 products of low-precision operands
 (``preferred_element_type=f32``), the port upcasts the operands: the products
@@ -51,12 +55,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def project_q(p: dict, x: torch.Tensor) -> torch.Tensor:
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
+    return q
+
+
+def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     k, v = project_kv(p, x)
-    return q, k, v
+    return project_q(p, x), k, v
 
 
 def project_kv(p: dict, x: torch.Tensor):
@@ -146,40 +154,135 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of a K/V tensor
+    (..., S, KV, HD) -> (int8 tensor, f16 scale (..., S, KV)).  The scale is
+    max|x| times the f32 reciprocal of 127, as XLA compiles the reference's
+    ``/ 127.0``, so both give the same bits."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) * (1.0 / 127.0)).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def decode_attention_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor,
+                        length: int) -> torch.Tensor:
+    """Decode attention over an int8-quantized cache: q (B, 1, H, D), ck/cv
+    (B, Smax, KVH, D) int8, scales (B, Smax, KVH).  The key scales multiply
+    the scores and the value scales the probabilities, as in the reference,
+    so the int8 values enter the products as they are; f32 throughout."""
+    B, _, H, D = q.shape
+    Smax, KVH = ck.shape[1], ck.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, D) / math.sqrt(D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), ck.float())
+    s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
+    invalid = torch.arange(Smax, device=q.device) >= length
+    s = s.masked_fill(invalid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = p * v_scale.float().transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bhgk,bkhd->bhgd", p, cv.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _write(buf: torch.Tensor, pos: int, x: torch.Tensor) -> None:
+    """``buf[:, pos:pos + S] = x``, in place, in ``buf``'s dtype."""
+    S = x.shape[1]
+    if pos + S > buf.shape[1]:
+        raise ValueError(f"decode at position {pos} overruns a cache of "
+                         f"{buf.shape[1]}")
+    buf[:, pos:pos + S] = x.to(buf.dtype)
+
+
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     mode: str,
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     cache_pos: Optional[int] = None,
+                    cross_x: Optional[torch.Tensor] = None,
                     causal: bool = True,
                     impl: str = "blocked",
                     kv_block: int = 1024):
-    """Self-attention sub-block: projections + rope + core + output proj.
+    """Full attention sub-block: projections + rope + core + output proj.
 
-    Returns (out, new_cache).  ``mode`` is train | prefill | decode.  Prefill
-    returns the prompt's {k, v}.  Decode writes the new token's K/V into
-    ``cache`` (one layer's (B, Smax, KVH, D) views) IN PLACE at ``cache_pos``
-    — the reference returns an updated copy; writing in place saves copying
-    every layer's cache on every token — and returns ``cache``.
+    Returns (out, new_cache).  ``mode`` is train | prefill | decode.
+
+    Self-attention: prefill returns the prompt's {k, v}.  Decode writes the
+    new token's K/V into ``cache`` (one layer's (B, Smax, KVH, D) views) IN
+    PLACE at ``cache_pos`` — the reference returns an updated copy; writing
+    in place saves copying every layer's cache on every token — and returns
+    ``cache``.  A cache with ``k_scale``/``v_scale`` is the int8 cache: the
+    token's K/V go in quantized, with their f16 scales, and decode runs
+    ``decode_attention_q8``.
+
+    Cross-attention (``cross_x`` given, or a cache marked ``"cross"``): no
+    rope; train and prefill project K/V from ``cross_x`` (the encoder's
+    output), return them as the cross cache {k, v} and attend without a
+    mask through ``blocked_attention`` (``naive_attention`` for
+    ``impl="naive"``), never flash, as in the reference; decode attends over
+    the whole cross cache and never writes it.
     """
     B, S, _ = x.shape
+    if cross_x is not None or (cache is not None and cache.get("cross", False)):
+        out, new_cache = _cross_attention(p, x, mode, cross_x, cache, impl,
+                                          kv_block)
+    else:
+        out, new_cache = _self_attention(p, x, cfg, mode, positions, cache,
+                                         cache_pos, causal, impl, kv_block)
+    H, D = out.shape[2], out.shape[3]
+    y = out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
+    return y, new_cache
+
+
+def _cross_attention(p: dict, x: torch.Tensor, mode: str,
+                     cross_x: Optional[torch.Tensor], cache: Optional[dict],
+                     impl: str, kv_block: int):
+    """The core of cross-attention (``attention_block``): (out, cache)."""
+    q = project_q(p, x)
+    if cross_x is not None:            # train / prefill: the cross cache
+        k, v = project_kv(p, cross_x)
+        new_cache = {"k": k, "v": v}
+    else:
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    if mode == "decode":
+        out = decode_attention(q, k, v, k.shape[1])
+    elif impl == "naive":
+        out = naive_attention(q, k, v, causal=False)
+    else:
+        out = blocked_attention(q, k, v, causal=False, block=kv_block)
+    return out, new_cache
+
+
+def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                    positions: Optional[torch.Tensor], cache: Optional[dict],
+                    cache_pos: Optional[int], causal: bool, impl: str,
+                    kv_block: int):
+    """The core of self-attention (``attention_block``): (out, cache)."""
     q, k, v = project_qkv(p, x, cfg)
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if cfg.rope_fraction > 0:
         q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
 
     new_cache = None
     if mode == "decode":
-        ck, cv = cache["k"], cache["v"]
-        if cache_pos + S > ck.shape[1]:
-            raise ValueError(f"decode at position {cache_pos} overruns a "
-                             f"cache of {ck.shape[1]}")
-        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
         new_cache = cache
-        out = decode_attention(q, ck, cv, cache_pos + 1)
+        if "k_scale" in cache:                     # int8-quantized cache
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                _write(cache[name], cache_pos, val)
+            out = decode_attention_q8(q, cache["k"], cache["v"],
+                                      cache["k_scale"], cache["v_scale"],
+                                      cache_pos + 1)
+        else:
+            _write(cache["k"], cache_pos, k)
+            _write(cache["v"], cache_pos, v)
+            out = decode_attention(q, cache["k"], cache["v"], cache_pos + 1)
     else:  # train / prefill
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
@@ -191,7 +294,4 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             out = blocked_attention(q, k, v, causal=causal, block=kv_block)
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
-
-    H, D = out.shape[2], out.shape[3]
-    y = out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
-    return y, new_cache
+    return out, new_cache

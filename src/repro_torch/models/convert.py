@@ -4,8 +4,9 @@
                              device="cpu", dtype=torch.float32)
     tree = params_to_numpy(params)     # the reverse, f32 numpy leaves
 
-The trees have the same structure for every ported family (dense, ssm,
-hybrid), so both packages then compute the same function, and updated
+The trees have the same structure for every family (the MoE router, stacked
+experts and shared expert, whisper's encoder and cross-attention included),
+so both packages then compute the same function, and updated
 parameters compare leaf by leaf.  Takes and gives numpy (never JAX arrays),
 so this module needs no JAX.
 """

@@ -2,6 +2,7 @@
 embeddings."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -112,7 +113,10 @@ def embed_params(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["table"][tokens]
+    x = p["table"][tokens]
+    if cfg.name.startswith("paligemma"):  # gemma scales embeddings
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def logits_from_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -23,6 +23,7 @@ class P:
     axes: Tuple[Optional[str], ...]
     init: str = "normal"       # normal | zeros | ones | embed | conv | a_log | dt_bias
     scale: float = 1.0         # fan-in style scale override (0 -> auto)
+    dtype: Optional[str] = None  # leaf dtype override (int8 KV caches etc.)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -60,8 +61,15 @@ def _truncated_normal(shape, gen: torch.Generator, lo: float = -2.0,
     return x.mul_(math.sqrt(2.0)).clamp_(lo, hi)
 
 
+def leaf_dtype(p: P, dtype: torch.dtype) -> torch.dtype:
+    """The leaf's own dtype (``p.dtype``, a torch dtype name such as
+    ``"int8"``), else ``dtype``."""
+    return getattr(torch, p.dtype) if p.dtype else dtype
+
+
 def _init_leaf(gen: torch.Generator, p: P, dtype: torch.dtype) -> torch.Tensor:
     dev = gen.device
+    dtype = leaf_dtype(p, dtype)
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=dev)
     if p.init == "ones":
@@ -93,7 +101,8 @@ def _init_leaf(gen: torch.Generator, p: P, dtype: torch.dtype) -> torch.Tensor:
 
 
 def init(tree, gen: torch.Generator, dtype: torch.dtype = torch.float32):
-    """Initialized tensors on ``gen.device``, drawn in tree order from ``gen``."""
+    """Initialized tensors on ``gen.device``, drawn in tree order from ``gen``;
+    in ``dtype`` unless the leaf names its own."""
     return tree_map(lambda p: _init_leaf(gen, p, dtype), tree)
 
 
@@ -102,4 +111,5 @@ def count(tree) -> int:
 
 
 def bytes_of(tree, dtype: torch.dtype = torch.bfloat16) -> int:
-    return sum(math.prod(p.shape) for p in leaves(tree)) * dtype.itemsize
+    return sum(math.prod(p.shape) * leaf_dtype(p, dtype).itemsize
+               for p in leaves(tree))

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -95,16 +95,21 @@ class ServeEngine:
         self.timings: List[RequestTiming] = []
 
     # -------------------------------------------------------------- prefill
-    def _prefill_one(self, prompt: List[int]):
+    def _prefill_one(self, prompt: List[int],
+                     extra: Optional[Dict[str, Any]] = None):
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
-        logits, cache = self.model.prefill_fn(self.params, {"tokens": toks})
+        logits, cache = self.model.prefill_fn(self.params,
+                                              {"tokens": toks, **(extra or {})})
         # grow cache KV seq axis to max_seq so decode can write into it
         return logits, self._pad_cache(cache)
 
     def _pad_cache(self, cache):
-        """Pad the leaves' 'kvseq' axis to ``max_seq``: the dense family's
-        k/v, the hybrid family's shared_k/shared_v.  The SSM state and conv
-        windows have no 'kvseq' axis and pass through as they are."""
+        """Pad the leaves' 'kvseq' axis to ``max_seq``: the k/v of the
+        attention families, the hybrid family's shared_k/shared_v.  The SSM
+        state and conv windows have no 'kvseq' axis, and whisper's cross
+        cache xk/xv is fixed at ``n_frames`` by its spec: they pass through as
+        they are.  An int8 model's spec has scale leaves that prefill does
+        not return, so its cache is refused here, as in the reference."""
         target = self.max_seq
 
         def pad_leaf(x, p):
@@ -127,14 +132,18 @@ class ServeEngine:
     # ---------------------------------------------------------------- serve
     @torch.inference_mode()
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 16,
+                 extra_inputs: Optional[Dict[str, Any]] = None,
                  eos_id: Optional[int] = None) -> List[List[int]]:
         """Sequentially prefill, then decode each request token by token.
+        ``extra_inputs`` go into every prefill's batch beside the tokens:
+        ``img_embeds`` (1, n_img_tokens, d) for vlm, ``frames`` (1, n_frames,
+        d) for audio, on the engine's device in the parameters' dtype.
         Per-request host-clock times land in ``self.timings``."""
         outs: List[List[int]] = []
         self.timings = []
         for prompt in prompts:
             t0 = time.perf_counter()
-            logits, cache = self._prefill_one(prompt)
+            logits, cache = self._prefill_one(prompt, extra_inputs)
             tok = self._next(logits)
             pos = len(prompt)
             toks = [int(tok[0])]

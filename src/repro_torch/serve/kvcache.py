@@ -1,8 +1,10 @@
 """Cache sizing from the spec tree declared in ``LM.cache_specs``.
 
-The dense family's k/v and the hybrid family's shared_k/shared_v grow with
-the sequence; the Mamba2 conv windows and SSD state do not (an ssm model has
-0 bytes per token).
+The k/v of the attention families (int8 with f16 scales for an int8 cache)
+and the hybrid family's shared_k/shared_v grow with the sequence; the Mamba2
+conv windows and SSD state, and whisper's cross cache at ``n_frames``, do
+not (an ssm model has 0 bytes per token).  Each leaf counts at its own dtype
+where its spec names one, else at ``dtype``.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ The reference's step is compiled by XLA:CPU and parsed by
 ``repro.core.hlo.parse_program``; the port's is captured by
 ``repro_torch.core.aten.capture`` and parsed by ``aten.parse_graph``.  Both
 start from the same numpy parameter tree (the reference's init, carried
-over by ``models.convert``), in f32, at batch 4 and 64 tokens; the SSD scan
+over by ``models.convert``), in f32, at batch 4 and 64 tokens (with zero
+image embeddings or frames for the vlm and audio families); the SSD scan
 runs the reference's ``jnp`` path and the port's ``chunked`` one, attention
 ``blocked`` in the training steps and the models' default in the prefills.
 Used by ``test_torch_aten*.py`` and ``tools/aten_parity.py``.
@@ -42,6 +43,11 @@ def programs(arch: str, what: str):
     tm = build_model(tcfg, ssd_impl="chunked")
     tp = params_from_jax(tree, tcfg, device="cpu")
     tbatch = {"tokens": torch.from_numpy(toks).long()}
+    # the vlm and audio inputs, zeros in both (as the launchers pass them)
+    for name, spec in tm.input_specs(ShapeConfig("t", S, B, what)).items():
+        if name != "tokens":
+            jbatch[name] = jnp.zeros(spec.shape, jnp.float32)
+            tbatch[name] = torch.zeros(spec.shape)
     if what == "train":
         jrun = JRunConfig(model=jcfg, shape=JShapeConfig("t", S, B, "train"),
                           **KW)

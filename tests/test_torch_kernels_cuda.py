@@ -9,7 +9,10 @@ imports no JAX, so on the card it runs as
 Flash attention (K3) is held at the reference's kernel-test tolerances: 2e-5
 in f32 (the kernel runs f32 in full f32, never TF32), 2e-2 in bf16, the
 bf16 kernel also at its tile edges (127-129 and 2047 rows and keys), for
-every head dim, on (B, S, H, D) views.  The SSD
+every head dim, on (B, S, H, D) views, and at the moe, vlm and audio
+families' attention shapes; the reduced families serve through it as
+through blocked attention, and a llama4-shaped MoE layer gives on the card
+what it gives on the CPU.  The SSD
 chunk kernel (K4) is held to its plain version at 1e-3 on its f32 outputs
 (the kernel's cumsum is a warp scan and its products run on bf16 tensor
 cores with the f32 operands split into hi and lo halves; at Q = 256 ``cs``
@@ -146,6 +149,87 @@ def test_reduced_serve_through_kernel_matches_blocked(cuda_device):
     assert fa.flash_attention_bhsd.launches == before + cfg.n_layers * 2
     want = ServeEngine(blocked, params, max_seq=48).generate(prompts, 6)
     assert got == want
+
+
+# the moe, vlm and audio families' attention shapes, scaled down in heads
+# and length: whisper-large-v3's encoder (no mask over 1500 keys, 11 full
+# key blocks and a ragged 92, D 64), paligemma-3b's (D 256, one KV head)
+# and llama4-scout's (5 query heads a KV head at D 128): (label, Sq, Sk, H,
+# KVH, D, causal)
+FAMILY_SHAPES = [("whisper encoder", 1500, 1500, 4, 4, 64, False),
+                 ("whisper decoder", 448, 448, 4, 4, 64, True),
+                 ("paligemma", 320, 320, 8, 1, 256, True),
+                 ("llama4-scout", 384, 384, 10, 2, 128, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,sq,sk,h,kvh,d,causal", FAMILY_SHAPES)
+def test_flash_kernel_at_the_families_shapes(cuda_device, label, sq, sk, h,
+                                             kvh, d, causal, dtype):
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda_device, dtype).transpose(1, 2)
+               for s in ((1, sq, h, d), (1, sk, kvh, d), (1, sk, kvh, d)))
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "paligemma-3b",
+                                  "llama4-scout-17b-a16e"])
+def test_reduced_families_serve_through_kernel_like_blocked(cuda_device,
+                                                            arch):
+    """Reduced models in f32 with their extra inputs: greedy tokens through
+    K3 equal those through blocked attention; K3 launches once per layer
+    that runs it (whisper: encoder and decoder self-attention) and prompt."""
+    cfg = reduced_config(ARCHS[arch])
+    flash, blocked = (build_model(cfg, attn_impl=i) for i in ("flash",
+                                                              "blocked"))
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    params = flash.init(gen)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["img_embeds"] = torch.randn(
+            (1, cfg.n_img_tokens, cfg.d_model), generator=gen,
+            device=cuda_device)
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn((1, cfg.n_frames, cfg.d_model),
+                                      generator=gen, device=cuda_device)
+    prompts = [[3, 1, 4, 1, 5], list(range(1, 40))]
+    before = fa.flash_attention_bhsd.launches
+    got = ServeEngine(flash, params, max_seq=48).generate(
+        prompts, 6, extra_inputs=extra)
+    assert fa.flash_attention_bhsd.launches == before + 2 * (
+        cfg.n_layers + cfg.n_encoder_layers)
+    want = ServeEngine(blocked, params, max_seq=48).generate(
+        prompts, 6, extra_inputs=extra)
+    assert got == want
+
+
+@pytest.mark.parametrize("shape", [(2, 64), (1, 200), (6, 1)])
+def test_moe_on_the_card_matches_its_cpu_run(cuda_device, shape):
+    """A llama4-shaped MoE layer (4 experts, top-1, a shared expert) in f32:
+    the card's routing, dispatch, experts and index_add_ combine against the
+    same call on the CPU: the same drops, outputs within 1e-5 (f32 matmuls
+    in another order; TF32 off), the aux loss within 1e-6 relative; at
+    (6, 1) decode's one global group."""
+    from repro_torch.models.moe import apply_moe
+    cfg = reduced_config(ARCHS["llama4-scout-17b-a16e"])
+    p = build_model(cfg).init(torch.Generator().manual_seed(0))
+    lp = {k: v[0] for k, v in p["layers"]["moe"].items()}
+    x = torch.randn((*shape, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    drops_cpu, drops_card = [], []
+    want, want_aux = apply_moe(lp, x, cfg, False, dropped=drops_cpu)
+    got, got_aux = apply_moe({k: v.to(cuda_device) for k, v in lp.items()},
+                             x.to(cuda_device), cfg, False,
+                             dropped=drops_card)
+    assert int(drops_card[0]) == int(drops_cpu[0])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    np.testing.assert_allclose(got_aux.item(), want_aux.item(), rtol=1e-6)
 
 
 # ------------------------------------------------------------------ K4

@@ -113,10 +113,3 @@ def test_init_draws_from_generator():
     assert torch.equal(a["layers"]["attn"]["bq"], torch.zeros_like(
         a["layers"]["attn"]["bq"]))
     assert torch.equal(a["final_norm"]["scale"], torch.ones(cfg.d_model))
-
-
-@pytest.mark.parametrize("arch", ["paligemma-3b", "grok-1-314b",
-                                  "whisper-large-v3"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(ARCHS[arch])
