@@ -154,7 +154,24 @@ Phases, in order; any failure exits non-zero and prints no result:
     layer in int8 and bf16 (``ServeEngine.generate`` takes no int8 cache,
     as in the reference); then phase 19 for whisper's and llama4's longest
     prefill (whisper's with its 1500-frame encoder), each capture's K3
-    calls held against the launches its phase counted a request.
+    calls held against the launches its phase counted a request;
+25. sampled estimation at full width (``core.sample``): phase 19's seven
+    kernel-path captures (the two training steps, the five prefills)
+    sampled with ``SamplingConfig()`` and swept over the zoo's 12-combo
+    O3 grid at 1/12/48 cores of ``A64FX_NODE``, sampled and in full,
+    through the scan kernel; the error, the share of op instances
+    scheduled, the wall seconds and the scan's launches and device time
+    of each; ``full_interval_estimate`` and k >= n_intervals bit-identical
+    at 12 cores; mamba2-1.3b's sampled sweep bit for bit with NumPy;
+26. the model zoo (``core.zoo.run_zoo``): all ten architectures' train,
+    prefill and decode cells captured at reduced width over fake CPU
+    tensors, estimated at 1/12/48 cores with the O3 grid on the scan
+    kernel; zamba2-1.2b's train cell bit for bit with NumPy; the Kendall
+    taus across core counts (at least 0.5, the reference's floor) and
+    against ``BENCH_model_zoo.json``'s ranks;
+27. the calibration CLIs: ``tools/kernel_suite_torch.py --quick`` (K1
+    through ``fit_h100`` and the Fig. 3 table) and ``tools/triad_torch.py
+    --quick`` (K2), their JSON held to its schema.
 
 The models are freed between phases.  After each model's serving phase,
 the profiler's kernel time of one prefill
@@ -162,7 +179,8 @@ of its longest prompt (with each kernel's share) and of 8 decode steps, beside
 the host clock and the device's idle share.
 Each serving and training phase sets every kernel's launch count to 0 just
 before it and reads the counts just after; so does the calibration path
-for K1 and K2, and phase 20 for the scan around each case's torch run.
+for K1 and K2, phase 20 for the scan around each case's torch run,
+phases 25 and 26 for the scan around each sweep, phase 27 for K1 and K2.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  There is no CPU path: without a CUDA device
 the script exits with 1.
@@ -1213,6 +1231,250 @@ def node_engine(dev, hw, captures) -> dict:
                             "iterations": rep.node.iterations,
                             "seconds": t_report},
             "seconds": seconds}
+
+
+# phases 25-27: sampled estimation, the model zoo, the calibration CLIs
+SAMPLE_CORE_COUNTS = (1, 12, 48)   # the zoo's core axis, A64FX_NODE
+SAMPLE_NUMPY_CAPTURE = "mamba2-1.3b training step"   # held against NumPy
+ZOO_TAU_FLOOR = 0.5                # tests/test_zoo.py's rank floor
+ZOO_NUMPY_CELL = ("zamba2-1.2b", "train")            # held against NumPy
+
+
+class ScanCount:
+    """The scan kernel's launches, batch elements and device time (CUDA
+    events around each launch) over a ``with`` block; counts set to 0 on
+    entry."""
+
+    def __enter__(self):
+        from repro_torch.kernels import sched_scan
+        self.scan = sched_scan.node_scan
+        self.scan.launches = self.scan.elements = 0
+        self.scan.events = []
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        events, self.scan.events = self.scan.events, None
+        self.launches = self.scan.launches
+        self.elements = self.scan.elements
+        self.batch = sorted({m for m, _, _ in events})
+        self.ms = sum(a.elapsed_time(b) for _, a, b in events)
+        return False
+
+    def row(self) -> dict:
+        return {"launches": self.launches, "elements": self.elements,
+                "batch_sizes": [self.batch[0], self.batch[-1]]
+                if self.batch else [], "kernel_ms": self.ms}
+
+
+def sampled_estimation(dev, captures) -> dict:
+    """Phase 25, sampled estimation at full width: each kernel-path capture
+    of phase 19 (the two training steps, the five prefills) is costed once
+    against ``A64FX_CORE``, sampled (``SamplingConfig()``: 512-instance
+    intervals, k by the BIC elbow, seed 0), and swept over the zoo's
+    12-combo O3 grid at 1/12/48 cores on ``A64FX_NODE`` twice through the
+    scan kernel: sampled (``sampled_node_sweep``) and in full
+    (``schedule_node_sweep``).  Printed: the error of the sampled grid
+    against the full one, the share of op instances scheduled, the wall
+    seconds of each and the scan's launches and device time.  At 12 cores
+    ``full_interval_estimate`` and the sampled estimate at k >= n_intervals
+    must give the same bits, and one capture's sampled sweep must equal
+    ``backend="numpy"``'s."""
+    import numpy as np
+
+    from repro_torch.core import cost, node, sample, zoo
+    from repro_torch.core.hwspec import A64FX_CORE, A64FX_NODE
+
+    t_phase = time.perf_counter()
+    hw, dt, cfg = A64FX_CORE, "bf16", sample.SamplingConfig()
+    knobs = zoo.zoo_o3_knobs(hw)
+    rows = []
+    for label, prog in captures:
+        if "kernel path" not in label:
+            continue
+        costed = cost.cost_program(prog, hw, compute_dtype=dt)
+        t0 = time.perf_counter()
+        plan = sample.sample_program(prog, hw, cfg, dt, costed)
+        plan_s = time.perf_counter() - t0
+        kw = dict(topology=A64FX_NODE, compute_dtype=dt)
+        with ScanCount() as sampled_scan:
+            t0 = time.perf_counter()
+            got, _ = sample.sampled_node_sweep(
+                prog, hw, knobs, SAMPLE_CORE_COUNTS, plan=plan,
+                backend="torch", device=dev, **kw)
+            sampled_s = time.perf_counter() - t0
+        nc = node.compile_node(prog, hw, compute_dtype=dt, costed=costed)
+        with ScanCount() as full_scan:
+            t0 = time.perf_counter()
+            full = node.schedule_node_sweep(
+                nc, hw, knobs, SAMPLE_CORE_COUNTS, A64FX_NODE,
+                backend="torch", device=dev)
+            full_s = time.perf_counter() - t0
+        if not (np.isfinite(got).all() and got.shape == full.shape):
+            fail(f"{label}: sampled grid {got.shape} not finite")
+        err = 100.0 * (got - full) / full
+        exact = sample.full_interval_estimate(prog, hw, 12, A64FX_NODE,
+                                              "shard", cfg, dt, costed)
+        at_n = sample.sampled_schedule_node(
+            prog, hw, 12, A64FX_NODE, "shard",
+            dataclasses.replace(cfg, k=10 ** 9), dt, costed)
+        if at_n.t_est != exact.t_est or exact.plan.k != plan.n_intervals:
+            fail(f"{label}: k >= n_intervals gives {at_n.t_est!r}, full "
+                 f"interval scheduling {exact.t_est!r}")
+        row = {"capture": label, "n_ops": len(prog.ops),
+               "n_intervals": plan.n_intervals, "k": plan.k,
+               "frac_ops_scheduled": plan.frac_ops_scheduled,
+               "max_abs_err_pct": float(np.abs(err).max()),
+               "median_abs_err_pct": float(np.median(np.abs(err))),
+               "err_pct_at_cores": {str(c): float(np.abs(err[i]).max())
+                                    for i, c in enumerate(SAMPLE_CORE_COUNTS)},
+               "t_full_12c_best_us": float(full[1].min() * 1e6),
+               "t_sampled_12c_best_us": float(got[1].min() * 1e6),
+               "plan_s": plan_s, "sampled_s": sampled_s, "full_s": full_s,
+               "scan_sampled": sampled_scan.row(),
+               "scan_full": full_scan.row(),
+               "full_interval_bits_equal": True}
+        if label.startswith(SAMPLE_NUMPY_CAPTURE):
+            want, _ = sample.sampled_node_sweep(
+                prog, hw, knobs, SAMPLE_CORE_COUNTS, plan=plan, **kw)
+            differ = int(np.count_nonzero(got.view(np.int64)
+                                          != want.view(np.int64)))
+            if differ:
+                fail(f"{label}: the sampled sweep on the card differs from "
+                     f"NumPy's in {differ} of {want.size} elements")
+            row["numpy_elements_differing"] = differ
+        print(f"[sample] {label}: {row['n_ops']} ops, k {plan.k} of "
+              f"{plan.n_intervals} intervals, "
+              f"{plan.frac_ops_scheduled:.1%} of instances scheduled; "
+              f"sampled vs full grid ({knobs.batch} combos x "
+              f"{len(SAMPLE_CORE_COUNTS)} core counts) |err| max "
+              f"{row['max_abs_err_pct']:.3f} %, median "
+              f"{row['median_abs_err_pct']:.3f} %; wall sampled "
+              f"{sampled_s:.3f} s ({sampled_scan.launches} launches, "
+              f"{sampled_scan.ms:.2f} ms of kernel time) vs full "
+              f"{full_s:.3f} s ({full_scan.launches} launches, "
+              f"{full_scan.ms:.2f} ms), plan {plan_s:.3f} s; "
+              f"full_interval_estimate == sampled at k >= n: bit-identical"
+              + ("; sampled sweep == numpy: 0 elements differ"
+                 if "numpy_elements_differing" in row else ""))
+        rows.append(row)
+    if len(rows) != 7 or not all(r["scan_sampled"]["launches"]
+                                 and r["scan_full"]["launches"] for r in rows):
+        fail(f"phase 25 ran {len(rows)} captures, or without the scan kernel")
+    seconds = time.perf_counter() - t_phase
+    print(f"[sample] phase 25: {seconds:.1f} s")
+    return {"rows": rows, "seconds": seconds,
+            "launches": sum(r["scan_sampled"]["launches"]
+                            + r["scan_full"]["launches"] for r in rows)}
+
+
+def model_zoo(dev) -> dict:
+    """Phase 26, the model zoo: ``zoo.run_zoo`` over all ten architectures
+    and their phases (captured at reduced width over fake CPU tensors),
+    the 12-combo O3 grid of each cell at 1/12/48 cores on the scan kernel
+    (``backend="torch"``); one cell held bit for bit against
+    ``backend="numpy"``; the wall seconds per cell and in all, the Kendall
+    taus across core counts (at least the reference's floor of 0.5) and
+    against the ranks of the reference's ``BENCH_model_zoo.json``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import zoo
+    from repro_torch.core.hwspec import A64FX_CORE
+    sys.path.insert(0, str(ROOT / "tools"))
+    from model_zoo_torch import taus_against
+
+    cells = {}
+
+    def progress(arch, phase, pe, wall):
+        cells[f"{arch}/{phase}"] = {"n_ops": pe.n_ops, "wall_s": wall}
+        print(f"[zoo] {arch} {phase}: {pe.n_ops} ops, t_est "
+              + ", ".join(f"{ce.n_cores}c {ce.t_est_s * 1e6:.1f} us"
+                          for ce in pe.per_core)
+              + f", best of the O3 grid at 12c "
+              f"{pe.at(12).t_best_knobs_s * 1e6:.1f} us; {wall:.2f} s")
+
+    zoo.clear_trace_caches()
+    with ScanCount() as scan:
+        report = zoo.run_zoo(progress=progress, backend="torch", device=dev)
+    d = report.to_dict()
+    if sorted(d["models"]) != sorted(ARCHS) or len(cells) != 30:
+        fail(f"the zoo covered {len(d['models'])} architectures, "
+             f"{len(cells)} cells")
+    arch, phase = ZOO_NUMPY_CELL
+    t0 = time.perf_counter()
+    pe = zoo.estimate_program(
+        zoo.trace_phase(arch, phase), A64FX_CORE,
+        model_flops=zoo.phase_model_flops(zoo.zoo_config(arch),
+                                          zoo.ZOO_SHAPES[phase]),
+        o3_knobs=zoo.zoo_o3_knobs(A64FX_CORE), arch=arch, phase=phase)
+    numpy_s = time.perf_counter() - t0
+    if dataclasses.asdict(pe) != dataclasses.asdict(
+            report.estimates[arch][phase]):
+        fail(f"zoo cell {arch}/{phase}: the scan kernel's estimate differs "
+             f"from backend='numpy'")
+    ref = json.loads((ROOT / "BENCH_model_zoo.json").read_text())
+    vs_ref = taus_against(ref, d)
+    for ph in report.phases:
+        taus = d["kendall_tau"][ph]
+        print(f"[zoo] {ph}: Kendall tau across core counts "
+              + ", ".join(f"{k} {v:+.3f}" for k, v in taus.items())
+              + "; against BENCH_model_zoo.json's ranks "
+              + ", ".join(f"@{k}c {v:+.3f}" for k, v in vs_ref[ph].items()))
+        if taus["min"] < ZOO_TAU_FLOOR:
+            fail(f"zoo {ph}: rank tau {taus['min']:.3f} under the "
+                 f"{ZOO_TAU_FLOOR} floor")
+    if not scan.launches:
+        fail("the zoo's O3 grid did not launch the scan kernel")
+    print(f"[zoo] phase 26: {len(cells)} cells in {report.wall_s:.1f} s, the "
+          f"scan kernel {scan.launches} launches ({scan.elements} elements, "
+          f"batches of {scan.batch[0]}-{scan.batch[-1]}) and {scan.ms:.1f} "
+          f"ms of kernel time; {arch}/{phase} on backend='numpy' in "
+          f"{numpy_s:.2f} s: the same estimate, bit for bit")
+    return {"wall_s": report.wall_s, "cells": cells, "scan": scan.row(),
+            "launches": scan.launches, "kendall_tau": d["kendall_tau"],
+            "vs_reference": vs_ref, "rank": d["rank"],
+            "numpy_cell": {"cell": f"{arch}/{phase}", "bits_equal": True,
+                           "numpy_s": numpy_s}}
+
+
+def calibration_clis() -> dict:
+    """Phase 27, the calibration CLIs on the card: ``kernel_suite_torch``
+    (``fit_h100``, the Fig. 3 table through K1, ``--quick``) and
+    ``triad_torch`` (K2 at 4 CTA caps, ``--quick``), each writing its JSON
+    into a temporary directory, K1's and K2's launches counted from 0 and
+    the JSON held to its schema."""
+    import tempfile
+
+    from repro_torch.kernels import stream
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_suite_torch
+    import triad_torch
+
+    t_phase = time.perf_counter()
+    stream.elementwise.launches = stream.stream_triad.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ks, tr = Path(tmp) / "kernel_suite.json", Path(tmp) / "triad.json"
+        if kernel_suite_torch.main(["--quick", "--out", str(ks)]) \
+                or triad_torch.main(["--quick", "--out", str(tr)]):
+            fail("a calibration CLI exited non-zero")
+        suite, triad = json.loads(ks.read_text()), json.loads(tr.read_text())
+    launches = {"stream_elementwise": stream.elementwise.launches,
+                "stream_triad": stream.stream_triad.launches}
+    want = {"kernels", "scheduler_throughput", "summary", "calibrated",
+            "card", "device"}
+    if not want <= set(suite) or len(suite["kernels"]) != 7 \
+            or not {"calibration", "triad_l2", "triad_mem"} <= set(triad):
+        fail(f"the CLIs' JSON misses keys: {sorted(suite)}, {sorted(triad)}")
+    if not all(launches.values()):
+        fail(f"the calibration CLIs launched {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[cli] phase 27: kernel_suite_torch --quick and triad_torch "
+          f"--quick in {seconds:.1f} s; launches {launches}; Fig. 3 mean|.| "
+          f"{suite['summary']['mean_abs_diff_pct']:.1f} % over "
+          f"{len(suite['kernels'])} kernels; Triad plateau "
+          f"{triad['calibration']['mem']['plateau'] / 1e9:.1f} GB/s")
+    return {"launches": launches, "seconds": seconds,
+            "summary": suite["summary"], "triad": triad["calibration"]}
 
 
 def main() -> int:
@@ -2372,7 +2634,7 @@ def main() -> int:
         row = capture_and_simulate(
             dev, fitted_h100, f"{arch} ({cfg.n_layers} layers) prefill {n}, "
             f"kernel path", prefill_of(model), args, want,
-            traced(record, "prefill_kernel_ms", "prefill_host_ms"))
+            traced(record, "prefill_kernel_ms", "prefill_host_ms"), captures)
         if read_launches() != before:
             fail(f"the capture moved the launch counters: {before} -> "
                  f"{read_launches()}")
@@ -2488,6 +2750,11 @@ def main() -> int:
             step_sims.append(fig3_family_prefill(record))
     gc.collect()
 
+    # 25.-27. sampled estimation, the model zoo, the calibration CLIs ------
+    sampling = sampled_estimation(dev, captures)
+    zoo_phase = model_zoo(dev)
+    clis = calibration_clis()
+
     if failures:
         fail("; ".join(failures))
     scan_row = next(r for r in node_phase["kernel_vs_plain"]
@@ -2500,6 +2767,9 @@ def main() -> int:
     print(json.dumps({"calibration": calibration}))
     print(json.dumps({"fig3_steps": step_sims}))
     print(json.dumps({"node_engine": node_phase}))
+    print(json.dumps({"sampled_estimation": sampling}))
+    print(json.dumps({"model_zoo": zoo_phase}))
+    print(json.dumps({"calibration_clis": clis}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in
                    servings + trainings + family_servings + [int8_record]}
                for k in KERNELS}
@@ -2553,8 +2823,10 @@ def main() -> int:
         "name": "stream_elementwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stream.cu",
         "replaces": "src/repro/kernels/stream.py:74",
-        "launches": calibration["launches"]["stream_elementwise"],
+        "launches": calibration["launches"]["stream_elementwise"]
+        + clis["launches"]["stream_elementwise"],
         "launches_by_path": {"calibration": calibration["launches"][
+            "stream_elementwise"], "calibration CLIs": clis["launches"][
             "stream_elementwise"]},
         "max_abs_err": max(stream_checks["k1_err"], stream_times["k1_err"]),
         "tolerance": f"|err| <= {STREAM_TOL} + {STREAM_TOL}|plain| (poly16 "
@@ -2577,8 +2849,10 @@ def main() -> int:
         "name": "stream_triad", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stream.cu",
         "replaces": "src/repro/kernels/stream.py:104",
-        "launches": calibration["launches"]["stream_triad"],
+        "launches": calibration["launches"]["stream_triad"]
+        + clis["launches"]["stream_triad"],
         "launches_by_path": {"calibration": calibration["launches"][
+            "stream_triad"], "calibration CLIs": clis["launches"][
             "stream_triad"]},
         "max_abs_err": max(stream_checks["k2_err"], stream_times["k2_err"]),
         "tolerance": "f32 |err| <= 1e-6 + 1e-5|plain|, f64 1e-12 + "
@@ -2590,9 +2864,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sched_scan.cu",
         "replaces": "src/repro/core/compiled.py:412",
         "also_replaces": "src/repro/core/node.py:940",
-        "launches": node_phase["launches"],
-        "launches_by_path": {r["case"]: r["launches"]
-                             for r in node_phase["cases"]},
+        "launches": node_phase["launches"] + sampling["launches"]
+        + zoo_phase["launches"],
+        "launches_by_path": {**{r["case"]: r["launches"]
+                                for r in node_phase["cases"]},
+                             "sampled estimation": sampling["launches"],
+                             "model zoo": zoo_phase["launches"]},
         "max_abs_err": 0.0,
         "tolerance": "bit-identical to the plain version and to the NumPy "
                      "pass (0 elements differ)",

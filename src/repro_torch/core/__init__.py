@@ -5,7 +5,7 @@ the occupancy and O3 engines (``engine``, ``schedule``/``compiled``),
 hardware parameter files (``hwspec``, with the ``H100`` test chip),
 calibration on the card (``calibrate``), the multi-core node engine
 (``node``, its batched passes also as a scan kernel on the card), and
-reporting (``roofline``, ``pa``, ``simulate``).  Sampling, the model zoo,
-DSE and the cluster and serving simulators are still to port (ROADMAP
-queue 1).
+reporting (``roofline``, ``pa``, ``simulate``), sampled estimation
+(``sample``), the cluster engine (``cluster``) and the model zoo (``zoo``).
+DSE and the serving simulator are still to port (ROADMAP queue 1).
 """

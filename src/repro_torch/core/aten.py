@@ -49,6 +49,10 @@ under DESIGN.md §9's rules restated for eager ATen:
   search over the N sorted entries), which reads both operands;
   ``index_add`` (out of place) -> ``scatter``, ``repeat_interleave`` ->
   ``gather``, ``any`` -> ``reduce``, ``round`` -> ``round-nearest-even``;
+  ``argmax``/``argmin`` (the serving decode step's) -> ``reduce`` at two
+  FLOPs an input element, as the reference's parser charges the variadic
+  reduce over the values and an iota that XLA writes for them; ``relu``
+  (nemotron-4-340b's squared ReLU) -> ``maximum``, with 0;
   ``scatter_`` and ``index_add_`` write in place (I-3 below).  The int8 and
   f16 casts of the quantized cache are ``_to_copy`` -> ``convert`` with
   their real dtypes (``s8``, ``f16``).
@@ -104,6 +108,7 @@ OPCODES = {
     # elementwise
     "add": "add", "sub": "subtract", "mul": "multiply", "neg": "negate",
     "abs": "abs", "maximum": "maximum", "clamp": "clamp", "where": "select",
+    "relu": "maximum",
     "eq": "compare", "ne": "compare", "lt": "compare", "le": "compare",
     "gt": "compare", "ge": "compare", "bitwise_or": "or",
     "logical_and": "and", "bitwise_not": "not", "_to_copy": "convert",
@@ -115,7 +120,7 @@ OPCODES = {
     "rsqrt": "rsqrt", "div": "divide", "reciprocal": "divide",
     # reduce
     "sum": "reduce", "mean": "reduce", "amax": "reduce",
-    "cumsum": "reduce-window",
+    "argmax": "reduce", "argmin": "reduce", "cumsum": "reduce-window",
     # data movement
     "embedding": "gather", "index": "gather", "index_select": "gather",
     "gather": "gather", "scatter": "scatter", "scatter_add": "scatter",
@@ -127,6 +132,10 @@ OPCODES = {
     "index_add": "scatter", "repeat_interleave": "gather", "any": "reduce",
     "round": "round-nearest-even",
 }
+# reduces that carry an index beside each value: XLA lowers them to one
+# variadic reduce over the values and an iota, which the reference's parser
+# charges an element of each operand
+ARG_REDUCES = {"argmax", "argmin"}
 # in-place writes into a buffer (I-3): the region is read and written
 REGION_WRITES = {"copy_", "index_copy_", "index_put_", "scatter_",
                  "index_add_"}
@@ -324,6 +333,8 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
         elif cls == "elementwise":
             stat.flops = nelems
             stat.vpu_by_opcode = {opcode: nelems}
+        elif name in ARG_REDUCES:      # a (value, index) pair an element
+            stat.flops = 2.0 * max(1, tensor_args[0][1].numel())
         elif cls == "reduce":
             stat.flops = float(max(1, tensor_args[0][1].numel()))
         ops.append(stat)

@@ -18,6 +18,9 @@ the H100, and times the hand-written Table-1 kernels (K1) and STREAM Triad
   4. sweep Triad over the number of CTAs (:func:`triad_scaling`), the
      Figs. 4/5 analogue.
 
+:func:`fit_cpu_host` fits the reference's second test chip, the CPU host,
+from the plain K1 functions in f64, by the reference's formulas.
+
 The program of each kernel comes from :func:`kernel_program`, not from a
 compiler: see its docstring.  Array sizes follow the reference's
 ``SIZE_SCALE`` (Table 1's n x 1024), which on the H100 makes working sets of
@@ -38,7 +41,7 @@ from ..device import resolve
 from ..kernels import ops
 from ..kernels.stream import DTYPES, EXPRS
 from .hlo import OpStat, Program
-from .hwspec import H100, HardwareSpec
+from .hwspec import CPU_HOST, H100, HardwareSpec
 from .simulate import simulate
 
 SIZE_SCALE = 1024     # the reference's: Table 1's n x1024
@@ -221,6 +224,90 @@ _FACTOR_FIT = {
     "exp": "exponential", "log": "log", "sin": "sine", "cos": "cosine",
     "atan": "atan2", "sqrt": "sqrt", "div": "divide",
 }
+
+# ----------------------------------------------- the CPU as a second test chip
+def _cpu_timer(name: str, n: int, repeats: int) -> float:
+    """Median seconds of the plain K1 ``name`` (``ops.elementwise`` on CPU
+    tensors) over ``n`` elements after one warm-up: a Table-1 expression
+    on its own inputs, ``poly16`` on |N(0, 1)| x 0.1 + 0.5 and ``fill`` on
+    zeros, both f64.  Seeded from 0 per call."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    if name == "poly16":
+        args = (torch.randn(n, generator=gen, dtype=torch.float64).abs()
+                * 0.1 + 0.5, None, None)
+    elif name == "fill":
+        args = (torch.zeros(n, dtype=torch.float64), None, None)
+    else:
+        args = _kernel_inputs(KERNELS_BY_NAME[name], n, gen, cpu)
+    return _median_time(_k1(name), args, repeats)
+
+
+def measure_dispatch_overhead(timer: Callable = _cpu_timer) -> float:
+    """Seconds of one call of the plain K1 ``add`` on 8 f64 elements on the
+    CPU: the host's per-call cost (the reference's empty ``jax.jit``), the
+    CPU spec's ``op_startup_ns``."""
+    return timer("add", 8, 50)
+
+
+def fit_cpu_host(n_mem: int = 1 << 21, n_fac: int = 1 << 15,
+                 size_scale: int = SIZE_SCALE,
+                 timer: Callable = _cpu_timer) -> HardwareSpec:
+    """Fit the CPU host's HardwareSpec from the plain K1 functions in f64
+    (torch on the CPU): the reference's ``fit_cpu_host``, its steps and
+    formulas in its order, with the CPU as a second test chip beside the
+    H100.  ``timer(name, n, repeats)`` gives the median seconds of the
+    plain K1 ``name`` over ``n`` elements (:func:`_cpu_timer`; tests pass
+    their own):
+
+    * ``op_startup_ns`` — :func:`measure_dispatch_overhead`;
+    * ``vpu_flops`` — ``poly16`` (32 flops an element) on an LLC-resident
+      array, startup subtracted (f32 at twice the f64 rate);
+    * ``vmem_bw`` (the LLC) — ``add`` on ``n_fac`` elements;
+    * ``hbm_write_bw`` — ``fill`` (a pure store) on ``n_mem`` elements,
+      and ``hbm_read_bw`` — ``add`` on ``n_mem`` with the fitted store
+      time subtracted (the blended rate if nothing is left);
+    * per-opcode factors of the ``_FACTOR_FIT`` kernels at Table 1's n x
+      ``size_scale``, with the per-level stream time subtracted;
+    * the hierarchy sanity clamp: the LLC is never slower than DRAM.
+    """
+    startup = measure_dispatch_overhead(timer)
+    # --- ALU rate: Horner poly16, LLC-resident
+    alu = 32.0 * n_fac / max(timer("poly16", n_fac, 25) - startup, 1e-9)
+    # --- stream rates: LLC-resident and DRAM-resident add (3 streams)
+    l2_bw = 3 * 8 * n_fac / max(timer("add", n_fac, 25) - startup, 1e-9)
+    t_add_mem = timer("add", n_mem, REPEATS)
+    blend_bw = 3 * 8 * n_mem / max(t_add_mem - startup, 1e-9)
+    # --- DRAM store path: a pure fill isolates writes; the add stream then
+    # yields the load path with the store time subtracted
+    wr_bw = 8 * n_mem / max(timer("fill", n_mem, REPEATS) - startup, 1e-9)
+    t_loads = t_add_mem - startup - 8 * n_mem / wr_bw
+    rd_bw = (2 * 8 * n_mem / t_loads) if t_loads > 0 else blend_bw
+    l2_bw = max(l2_bw, rd_bw, wr_bw)
+    # --- per-opcode factors at the EVALUATION scale, stream time subtracted
+    factors = {}
+    for kname, opcode in _FACTOR_FIT.items():
+        _, n_in, _, _ = EXPRS[kname]
+        n_eval = KERNELS_BY_NAME[kname].n * size_scale
+        t = timer(kname, n_eval, 9)
+        t_mem = n_in * 8 * n_eval / rd_bw + 8 * n_eval / wr_bw
+        factors[opcode] = max(1.0, (t - startup - t_mem) * alu / n_eval)
+    # mod = divide + round-trip; remainder rides the divide entry
+    factors.setdefault("remainder", factors.get("divide", 4.0))
+    return CPU_HOST.with_(
+        vpu_flops={"f64": alu, "f32": 2 * alu, "default": alu},
+        peak_flops={"f64": alu, "f32": 2 * alu, "default": alu},
+        transcendental_factor=max(2.0, factors.get("exponential", 4.0)),
+        opcode_factor={**CPU_HOST.opcode_factor, **factors},
+        hbm_read_bw=rd_bw,
+        hbm_write_bw=wr_bw,
+        vmem_bytes=24 * 2**20,      # LLC stand-in
+        vmem_bw=l2_bw,
+        # a CPU core stalls on the miss THEN computes: additive composition
+        dma_overlap=0.0,
+        op_startup_ns=startup * 1e9,
+    )
+
 
 # fit_h100's working sets: well inside the 50 MB L2 (3 x 8 MB for add) and
 # at least 4x L2 in HBM (3 x 268 MB for add; 268 MB for fill, so that the

@@ -8,8 +8,7 @@ already parsed or hand-built :class:`~.hlo.Program`, or a PyTorch step
 captured as an ATen graph (``core.aten.capture``: a ``torch.fx.GraphModule``
 goes through ``aten.parse_graph`` as the reference's jax ``Compiled`` goes
 through its HLO text), so ``xla_cost_analysis`` and ``memory_analysis``
-are ``None``.  Sampled estimation (``sampling=``, ROADMAP queue 1 item 7)
-is not ported yet and raises.
+are ``None``.
 
 This is the paper's end-to-end flow: application binary -> simulator ->
 execution-cycle estimate + PA data, before the target hardware exists.
@@ -27,6 +26,7 @@ from .hwspec import HardwareSpec, NodeTopology, TPU_V5E
 from .node import NodeResult, simulate_node
 from .pa import pa_report
 from .roofline import Roofline, roofline_from_program
+from .sample import SampledNodeResult, SamplingConfig, sampled_schedule_node
 from .schedule import ScheduleResult, schedule_program
 
 
@@ -53,9 +53,8 @@ class SimReport:
     program: Optional[Program] = None
     # multi-core node engine result (engine="node")
     node: Optional[NodeResult] = None
-    # sampled node estimation in the reference; always None here until
-    # sampling is ported (ROADMAP queue 1 item 7)
-    sampled: Optional[Any] = None
+    # sampled node estimation (engine="node" + sampling=; DESIGN.md §18)
+    sampled: Optional[SampledNodeResult] = None
 
     @property
     def t_est(self) -> float:
@@ -155,7 +154,7 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
              engine: str = "occupancy", n_cores: int = 1,
              topology: Optional[NodeTopology] = None,
              node_partition: str = "round-robin",
-             sampling: Optional[Any] = None) -> SimReport:
+             sampling: Optional[SamplingConfig] = None) -> SimReport:
     """Simulate one program on ``hw``: the paper's end-to-end flow
     (application binary -> execution-time estimate + PA data, DESIGN.md §2).
 
@@ -181,18 +180,21 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
         ``report.t_est`` is the contention-aware node makespan and the PA
         report gains the per-CMG contention section.
 
-    ``sampling`` (sampled estimation, ROADMAP queue 1 item 7) is not
-    ported yet and raises.
+    ``sampling`` (node mode only) switches the node estimate to the
+    SimPoint-style sampled path (``core.sample``, DESIGN.md §18): the
+    program is sliced into intervals, clustered by signature, and only
+    cluster representatives are scheduled; ``report.sampled`` carries the
+    reconstruction and ``report.t_est`` comes from it.  Use for long
+    traces (full-depth steps, multi-token decode) where scheduling every
+    op is the bottleneck.
 
     Returns a :class:`SimReport`; ``report.pa`` is the human-readable PA
     report, ``report.to_json()`` the machine-readable artifact.
     """
     if engine not in ("occupancy", "schedule", "both", "node"):
         raise ValueError(f"unknown engine mode {engine!r}")
-    if sampling is not None:
-        raise NotImplementedError(
-            "simulate(sampling=...): sampled estimation is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+    if sampling is not None and engine != "node":
+        raise ValueError("sampling= requires engine='node'")
     if isinstance(program, str):
         prog = parse_program(program)
     elif isinstance(program, Program):
@@ -209,11 +211,17 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
     sched = (schedule_program(prog, hw, compute_dtype=compute_dtype,
                               costed=costed, detail=True)
              if engine in ("schedule", "both") else None)
-    node = None
+    node = sampled = None
     if engine == "node":
-        node = simulate_node(prog, hw, n_cores, topology=topology,
-                             partition=node_partition,
-                             compute_dtype=compute_dtype, costed=costed)
+        if sampling is not None:
+            sampled = sampled_schedule_node(
+                prog, hw, n_cores, topology=topology,
+                partition=node_partition, config=sampling,
+                compute_dtype=compute_dtype, costed=costed)
+        else:
+            node = simulate_node(prog, hw, n_cores, topology=topology,
+                                 partition=node_partition,
+                                 compute_dtype=compute_dtype, costed=costed)
     rf = roofline_from_program(prog, hw, n_chips, model_flops_global,
                                compute_dtype)
     summary = {
@@ -229,4 +237,4 @@ def simulate(program: Union[str, Program, Any], hw: HardwareSpec = TPU_V5E,
                      pa=pa_report(rf, eng, prog, title, sched=sched,
                                   engine_mode=engine, node=node),
                      schedule=sched, engine_mode=engine, program=prog,
-                     node=node)
+                     node=node, sampled=sampled)

@@ -4,7 +4,8 @@ The k/v of the attention families (int8 with f16 scales for an int8 cache)
 and the hybrid family's shared_k/shared_v grow with the sequence; the Mamba2
 conv windows and SSD state, and whisper's cross cache at ``n_frames``, do
 not (an ssm model has 0 bytes per token).  Each leaf counts at its own dtype
-where its spec names one, else at ``dtype``.
+where its spec names one, else at ``dtype``.  ``cache_abstract`` gives the
+tree without storage.
 """
 from __future__ import annotations
 
@@ -12,6 +13,20 @@ import torch
 
 from ..models import params as pr
 from ..models.lm import LM
+
+
+def cache_abstract(model: LM, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: str | torch.device = "meta"):
+    """The cache tree as tensors without storage, each leaf at its own dtype
+    (else ``dtype``): ``meta`` tensors by default; under a
+    ``FakeTensorMode``, fake tensors on ``device`` (the model zoo traces a
+    decode step over these).  The reference's ``ShapeDtypeStruct`` tree;
+    ``cache_shardings`` waits for ``parallel/``."""
+    return pr.tree_map(
+        lambda p: torch.empty(p.shape, dtype=pr.leaf_dtype(p, dtype),
+                              device=device),
+        model.cache_specs(batch, max_seq))
 
 
 def cache_bytes(model: LM, batch: int, max_seq: int,

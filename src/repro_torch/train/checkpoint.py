@@ -20,7 +20,7 @@ manifest records the stored dtype, as the reference's does.
 * **Garbage collection**: the ``keep_last`` newest steps are kept.
 
 The reference's elastic reshard (``shardings``) and its asynchronous writer
-wait for meshes (``parallel/``, ROADMAP queue 1 item 5).
+wait for meshes (``parallel/``, ROADMAP queue 1).
 """
 from __future__ import annotations
 

@@ -21,8 +21,8 @@ recovery mechanism* — the same contract a 1000-node synchronous job has.
 ``FaultInjector`` provides deterministic failures for tests/examples.
 
 Counterpart of ``repro.train.fault`` over ``train/checkpoint.py``; the
-reference's restart-mesh ``shardings`` wait for meshes (ROADMAP queue 1
-item 5).
+reference's restart-mesh ``shardings`` wait for meshes (ROADMAP queue 1,
+``parallel/``).
 """
 from __future__ import annotations
 

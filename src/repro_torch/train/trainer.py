@@ -12,7 +12,7 @@ then the gradients are clipped to ``run.grad_clip`` and the optimizer
 updates the parameters in their own dtype.  Metrics: ``loss``,
 ``grad_norm``, ``ce``, ``aux`` (0-d tensors).
 
-Meshes (``parallel/``, ROADMAP queue 1 item 5) are not ported, and so
+Meshes (``parallel/``, ROADMAP queue 1) are not ported, and so
 neither is ``grad_compression``, which needs the ``pod`` mesh axis; without
 a mesh the reference ignores it too.
 """
@@ -37,7 +37,7 @@ def _no_mesh(rules) -> None:
     if rules is not None:
         raise NotImplementedError(
             "the train step takes no mesh yet: parallel/ (and with it "
-            "grad_compression over the 'pod' axis) is ROADMAP queue 1 item 5")
+            "grad_compression over the 'pod' axis) waits in ROADMAP queue 1")
 
 
 def _unflatten(like, flat: list):

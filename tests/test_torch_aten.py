@@ -181,3 +181,41 @@ def test_quickstart_runs_on_the_cpu(capsys):
     assert "schedule engine (dependency-aware O3)" in out
     assert report.hw == "h100" and report.t_est > 0
     assert report.program.by_class()["matmul"]["flops"] == 704_643_072
+
+
+def _ref_ops(fn, *shapes):
+    """The reference's parse of ``fn`` compiled by XLA:CPU over f32 inputs."""
+    import jax
+    import jax.numpy as jnp
+    args = [jnp.zeros(s, jnp.float32) for s in shapes]
+    return ref_hlo.parse_program(
+        jax.jit(fn).lower(*args).compile().as_text()).ops
+
+
+def test_argmax_and_argmin_lower_as_the_references_variadic_reduce():
+    """XLA writes ``jnp.argmax`` as one variadic reduce over the values and
+    an iota (fused with the iota), which the reference's parser charges an
+    element of each operand, plus its two init scalars.  The port charges
+    the same pair an element: the serving decode step's argmax parses."""
+    import jax.numpy as jnp
+    x = torch.randn(2, 1000)
+    ops = _ops(lambda x: (torch.argmax(x, -1), torch.argmin(x, 0)), x)
+    assert [(o.opcode, o.opclass, o.dtype) for o in ops] \
+        == [("reduce", "reduce", "s64")] * 2
+    assert ops[0].flops == ops[1].flops == 2 * 2000
+    assert ops[0].read_bytes == 8000 and ops[0].write_bytes == 2 * 8
+    (ref,) = _ref_ops(lambda x: jnp.argmax(x, -1), (2, 1000))
+    iota = ref.vpu_by_opcode["iota"]
+    assert ops[0].flops == ref.flops - iota - 2      # less the init scalars
+
+
+def test_relu_lowers_to_an_elementwise_max_with_zero():
+    """nemotron-4-340b's squared ReLU: ``relu`` is a ``maximum``, as
+    ``jnp.maximum(x, 0)`` is in the reference's HLO."""
+    import jax.numpy as jnp
+    x = torch.randn(4, 500)
+    ops = _ops(lambda x: torch.relu(x), x)
+    assert [(o.opcode, o.opclass) for o in ops] == [("maximum", "elementwise")]
+    assert ops[0].vpu_by_opcode == {"maximum": 2000} and ops[0].flops == 2000
+    (ref,) = _ref_ops(lambda x: jnp.maximum(x, 0), (4, 500))
+    assert ref.vpu_by_opcode["maximum"] == ops[0].vpu_by_opcode["maximum"]

@@ -224,8 +224,8 @@ def test_schedule_batch_matches_over_the_default_knob_grid(texts, name, spec):
 def test_unported_backends_and_engines_raise():
     """The reference's jax backend raises, naming the port's ``torch``
     (its plain version on the CPU equals NumPy); the node engine is ported
-    (test_torch_node.py); sampled estimation is not (ROADMAP queue 1
-    item 7)."""
+    (test_torch_node.py); ``sampling=`` outside ``engine="node"`` raises
+    as the reference's does (sampled estimation: test_torch_sample.py)."""
     prog = pt_hlo.parse_program(CHAIN_HLO)
     cp = pt_compiled.compile_program(prog, pt_hw.TPU_V5E)
     knobs = cal.default_o3_knobs(pt_hw.TPU_V5E)
@@ -236,8 +236,9 @@ def test_unported_backends_and_engines_raise():
         pt_compiled.schedule_batch(cp, knobs))
     rep = pt_simulate.simulate(CHAIN_HLO, engine="node")
     assert rep.node is not None and rep.t_est == rep.node.t_est
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt_simulate.simulate(CHAIN_HLO, sampling=object())
+    for sim in (ref_simulate, pt_simulate):
+        with pytest.raises(ValueError, match="engine='node'"):
+            sim.simulate(CHAIN_HLO, sampling=object())
     rep = pt_simulate.simulate(prog, engine="both")   # a Program is accepted
     assert rep.xla_cost_analysis is None and rep.memory_analysis is None
     assert rep.to_json() == pt_simulate.simulate(CHAIN_HLO,

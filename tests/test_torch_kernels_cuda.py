@@ -48,7 +48,8 @@ The scheduler's scan (``kernels.sched_scan``) equals its plain version and
 the NumPy pass bit for bit (it only adds and takes maxima of float64): at
 1, 4 and 48 streams, with the cross-CMG ring addend, windows up to 1024,
 1 to 1000 batch elements and ops with more inputs than it stages at once;
-so do ``backend="torch"``'s fixpoints on the card against ``"numpy"``.
+so do ``backend="torch"``'s fixpoints on the card against ``"numpy"``,
+the sampled sweep's (``core.sample``) and a model-zoo cell's O3 grid.
 """
 import numpy as np
 import pytest
@@ -876,6 +877,44 @@ def test_sched_scan_backends_on_the_card_equal_numpy(cuda_device):
                           node.schedule_node_sweep(*args, backend="torch",
                                                    device=cuda_device))
     assert sched_scan.node_scan.launches > before + 3
+
+
+def test_sampled_node_sweep_on_the_card_equals_numpy(cuda_device):
+    """``sample.sampled_node_sweep(backend="torch")``: each
+    representative's core-count x knob sweep through the scan on the card,
+    NumPy's bits, the kernel launched."""
+    import random
+
+    from _sched_dags import random_program
+
+    from repro_torch.core import hlo, hwspec, sample, zoo
+    from repro_torch.kernels import sched_scan
+    step = random_program(random.Random(11), 300, hlo)
+    prog = sample.unroll_program(step, 6)
+    knobs = zoo.zoo_o3_knobs(hwspec.A64FX_CORE)
+    plan = sample.sample_program(
+        prog, hwspec.A64FX_CORE,
+        sample.SamplingConfig(interval_ops=100.0, k=4), "f32")
+    args = (prog, hwspec.A64FX_CORE, knobs, (1, 12, 48), hwspec.A64FX_NODE)
+    want, _ = sample.sampled_node_sweep(*args, plan=plan)
+    before = sched_scan.node_scan.launches
+    got, _ = sample.sampled_node_sweep(*args, plan=plan, backend="torch",
+                                       device=cuda_device)
+    assert sched_scan.node_scan.launches > before
+    assert got.shape == (3, 12) and np.array_equal(got, want)
+
+
+def test_zoo_cell_on_the_card_equals_numpy(cuda_device):
+    """One zoo cell (reduced chatglm3-6b's decode step, captured over fake
+    CPU tensors) with its O3 grid on the card, NumPy's bits."""
+    from repro_torch.core import zoo
+    from repro_torch.kernels import sched_scan
+    kw = dict(models=["chatglm3-6b"], phases=["decode"])
+    want = zoo.run_zoo(**kw).to_dict()
+    before = sched_scan.node_scan.launches
+    got = zoo.run_zoo(backend="torch", device=cuda_device, **kw).to_dict()
+    assert sched_scan.node_scan.launches > before
+    assert got["models"] == want["models"]
 
 
 def test_pointer_chase_times_a_load(cuda_device):

@@ -41,9 +41,32 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {f"repro_torch.core.{m}" for m in (
         "hlo", "memory", "hwspec", "cost", "engine", "roofline", "stats",
         "compiled", "schedule", "pa", "simulate", "calibrate", "aten",
-        "node")} <= names
+        "node", "sample", "cluster", "zoo")} <= names
     assert {"repro_torch.kernels.stream", "repro_torch.kernels.sched_scan",
             "repro_torch.configs.a64fx_kernelsuite"} <= names
+
+
+TOOLS = sorted((SRC.parent / "tools").glob("*_torch.py"))
+
+
+@pytest.mark.parametrize("tool", TOOLS, ids=[t.stem for t in TOOLS])
+def test_the_port_tools_load_no_jax_and_no_repro(tool):
+    """Each port CLI (``tools/*_torch.py``) imports with only ``src`` and
+    ``tools`` on the path, and loads neither JAX nor ``repro``."""
+    code = (f"import runpy, sys; runpy.run_path({str(tool)!r}, "
+            "run_name='tool'); bad = sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_port_tool_is_covered():
+    assert {t.stem for t in TOOLS} >= {
+        "sched_throughput_torch", "kernel_suite_torch", "triad_torch",
+        "model_zoo_torch", "sampled_estimation_torch"}
 
 
 @pytest.fixture
@@ -187,3 +210,16 @@ def test_stream_on_cpu_never_touches_the_kernel_library(monkeypatch):
     assert (stream.elementwise.launches,
             stream.stream_triad.launches) == before
 
+
+
+@pytest.mark.parametrize("tool", ["kernel_suite_torch", "triad_torch",
+                                  "model_zoo_torch",
+                                  "sampled_estimation_torch"])
+def test_the_calibration_and_zoo_clis_raise_without_card(no_card, tool,
+                                                          tmp_path):
+    import importlib
+    sys.path.insert(0, str(SRC.parent / "tools"))
+    mod = importlib.import_module(tool)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--quick", "--out", str(tmp_path / "x.json")])
+    assert not (tmp_path / "x.json").exists()

@@ -218,6 +218,7 @@ def test_simulate_node_rejects_what_the_reference_rejects():
         with pytest.raises(ValueError):
             pt_simulate.simulate(INDEP_HLO, hw=pt_hw.A64FX_CORE,
                                  engine="node", **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt_simulate.simulate(INDEP_HLO, hw=pt_hw.A64FX_CORE, engine="node",
-                             sampling=object())
+    for sim, hw in ((ref_simulate, ref_hw), (pt_simulate, pt_hw)):
+        with pytest.raises(ValueError, match="engine='node'"):
+            sim.simulate(INDEP_HLO, hw=hw.A64FX_CORE, engine="schedule",
+                         sampling=object())
