@@ -171,7 +171,30 @@ Phases, in order; any failure exits non-zero and prints no result:
     against ``BENCH_model_zoo.json``'s ranks;
 27. the calibration CLIs: ``tools/kernel_suite_torch.py --quick`` (K1
     through ``fit_h100`` and the Fig. 3 table) and ``tools/triad_torch.py
-    --quick`` (K2), their JSON held to its schema.
+    --quick`` (K2), their JSON held to its schema;
+28. hardware DSE (``core.dse``): phase 19's seven kernel-path captures
+    each swept over the 64-candidate A64FX-like grid (``spec_grid(
+    generate_grid())``) on the scan kernel, the grid's host compile timed
+    apart, the scan's launches, elements and device time, the best
+    candidate, the Pareto front and the ranks' Kendall tau across the
+    seven; mamba2-1.3b's step on NumPy too, 0 of 64 elements differing;
+    ``run_dse`` on the reference bench's ten zoo workloads on the scan,
+    with the tau of each against ``BENCH_dse.json``'s ranks; and
+    ``tools/dse_sweep_torch.py --quick`` (fused sweep on the scan against
+    the per-spec loop: bit-identical, at least 10x);
+29. the serving simulator (``core.serving``): ``tools/serving_sweep_torch.py
+    --quick`` and its three gates; ``build_zoo_cost_model`` for
+    chatglm3-6b, qwen1.5-32b, llama4-scout-17b-a16e and mamba2-1.3b from
+    the port's captures and the six-policy sweep at 600 requests (A64FX-node
+    estimates of the models, not card times), the KV bytes a token equal
+    to ``BENCH_serving.json``'s; then ``examples/serve_lm_torch.py``: the
+    reduced chatglm3-6b and mamba2-1.3b (vocab 256) trained 500 steps in
+    f32 on a Markov rule and served through K3 (f32, D 32) and K4, the
+    rule-following accuracy above 0.5 for each; each shape, dtype and B/C
+    layout the example launched K3, K4 or K5 at (K3 B 1, S 24, H 4 over
+    one KV head; K4 and K5 B 32, nc 4, Q 16, H 16, P 16, N 16, broadcast
+    B/C; K4 also B 1, nc 2) recorded around its launches and the kernel
+    held there against its plain version.
 
 The models are freed between phases.  After each model's serving phase,
 the profiler's kernel time of one prefill
@@ -180,7 +203,8 @@ the host clock and the device's idle share.
 Each serving and training phase sets every kernel's launch count to 0 just
 before it and reads the counts just after; so does the calibration path
 for K1 and K2, phase 20 for the scan around each case's torch run,
-phases 25 and 26 for the scan around each sweep, phase 27 for K1 and K2.
+phases 25, 26 and 28 for the scan around each sweep, phase 27 for K1 and
+K2, phase 29 for K3, K4 and K5 around each model of ``serve_lm``.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  There is no CPU path: without a CUDA device
 the script exits with 1.
@@ -1477,6 +1501,285 @@ def calibration_clis() -> dict:
             "summary": suite["summary"], "triad": triad["calibration"]}
 
 
+# phases 28-29: hardware DSE and the serving simulator
+def run_tool(script: str, *args: str) -> subprocess.CompletedProcess:
+    """``tools/<script>`` in a process of its own with ``src`` on its path;
+    fails the run on a non-zero exit, with the end of its output."""
+    import os
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / script), *args],
+        capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode:
+        fail(f"{script} {' '.join(args)} exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return proc
+
+
+def dse_on_card(dev, captures) -> dict:
+    """Phase 28, hardware DSE on the card (``core.dse``): (a) each
+    kernel-path capture of phase 19 (the two training steps, the five
+    prefills) swept over the 64-candidate grid (``spec_grid(
+    generate_grid())``: 8-72 cores, 1-6 CMGs, ring 0 or 130 ns) with
+    ``backend="torch"``, the grid's compile on the host timed apart from
+    the sweep, the scan's launches, elements and device time counted
+    around it, the best candidate and the Pareto front over (cycles, HBM
+    bytes, cores), and the Kendall tau of the candidates' ranks across
+    the seven; (b) mamba2-1.3b's step swept again on NumPy: 0 of 64
+    elements may differ; (c) ``run_dse`` on the reference bench's ten zoo
+    workloads on the scan, its rank stability and the tau of each
+    workload's ranks against ``BENCH_dse.json``'s; (d)
+    ``tools/dse_sweep_torch.py --quick`` in a process of its own, whose
+    exit code carries its gates: the fused sweep on the scan
+    bit-identical to the per-spec loop and above its 10x floor."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import dse, zoo
+    from repro_torch.core.node import compile_node_grid
+    sys.path.insert(0, str(ROOT / "tools"))
+    from dse_sweep_torch import (FULL_MODELS, FULL_PHASES, REFERENCE_JSON,
+                                 against_reference)
+
+    t_phase = time.perf_counter()
+    points = dse.generate_grid()
+    grid = dse.spec_grid(points)
+    rows, t_cols = [], []
+    for label, prog in captures:
+        if "kernel path" not in label:
+            continue
+        t0 = time.perf_counter()
+        compile_node_grid(prog, grid, compute_dtype="f32")
+        compile_s = time.perf_counter() - t0
+        with ScanCount() as scan:
+            t0 = time.perf_counter()
+            sw = dse.sweep_workload(prog, grid, backend="torch", device=dev)
+            sweep_s = time.perf_counter() - t0
+        t = sw["t_est"]
+        if t.shape != (grid.S,) or not (np.isfinite(t).all()
+                                        and (t > 0).all()):
+            fail(f"{label}: DSE estimates {t.shape} not finite and positive")
+        front = dse.pareto_front(np.stack(
+            [t * zoo.DEFAULT_CLOCK_HZ, sw["hbm_bytes"], sw["n_cores"]], 1))
+        best = int(np.argmin(t))
+        row = {"capture": label, "n_ops": len(prog.ops),
+               "compile_s": compile_s, "sweep_s": sweep_s,
+               "scan": scan.row(), "best_spec": points[best].name,
+               "t_best_us": float(t[best] * 1e6),
+               "t_a64fx_us": float(t[points.index(
+                   dse.SpecPoint(4, 12, 1, 130.0, 2))] * 1e6),
+               "pareto_size": len(front),
+               "pareto_specs": [points[i].name for i in front]}
+        if label.startswith(SCAN_STEP):
+            t0 = time.perf_counter()
+            want = dse.sweep_workload(prog, grid, backend="numpy")["t_est"]
+            row["numpy_sweep_s"] = time.perf_counter() - t0
+            differ = int(np.count_nonzero(t.view(np.int64)
+                                          != want.view(np.int64)))
+            if differ:
+                fail(f"{label}: the DSE sweep on the card differs from "
+                     f"NumPy's in {differ} of {want.size} elements")
+            row["numpy_elements_differing"] = differ
+        print(f"[dse] {label}: {row['n_ops']} ops x {grid.S} candidates; "
+              f"grid compile {compile_s:.2f} s (host), sweep {sweep_s:.3f} s "
+              f"({scan.launches} launches, {scan.elements} elements, "
+              f"{scan.ms:.2f} ms of kernel time); best {row['best_spec']} "
+              f"{row['t_best_us']:.1f} us (A64FX {row['t_a64fx_us']:.1f} us), "
+              f"Pareto front of {len(front)}"
+              + (f"; numpy sweep {row['numpy_sweep_s']:.3f} s, 0 of "
+                 f"{grid.S} elements differ"
+                 if "numpy_elements_differing" in row else ""))
+        rows.append(row)
+        t_cols.append(t)
+    if len(rows) != 7 or not all(r["scan"]["launches"] for r in rows):
+        fail(f"phase 28 swept {len(rows)} captures, or without the scan "
+             f"kernel")
+    taus = [zoo.kendall_tau(list(t_cols[i]), list(t_cols[j]))
+            for i in range(len(t_cols)) for j in range(i + 1, len(t_cols))]
+    print(f"[dse] the candidates' ranks across the 7 captures: Kendall tau "
+          f"min {min(taus):+.3f}, mean {np.mean(taus):+.3f}")
+
+    workloads = zoo.zoo_workloads(FULL_MODELS, FULL_PHASES)
+    with ScanCount() as zscan:
+        t0 = time.perf_counter()
+        payload = dse.run_dse(workloads, points=points, backend="torch",
+                              device=dev)
+        run_dse_s = time.perf_counter() - t0
+    if not zscan.launches or len(payload["per_workload"]) != 10:
+        fail(f"run_dse swept {len(payload['per_workload'])} workloads with "
+             f"{zscan.launches} scan launches")
+    vs_ref = against_reference(json.loads(REFERENCE_JSON.read_text()),
+                               payload)
+    for key, v in vs_ref.items():
+        print(f"[dse] run_dse {key}: {v['n_ops']} ops (reference "
+              f"{v['reference_n_ops']}), best {v['best_spec']} (reference "
+              f"{v['reference_best_spec']}), Kendall tau against "
+              f"BENCH_dse.json's ranks {v['kendall_tau']:+.3f}")
+    rs = payload["rank_stability"]
+    print(f"[dse] run_dse: {len(workloads)} zoo workloads in {run_dse_s:.1f} "
+          f"s, the scan {zscan.launches} launches ({zscan.ms:.1f} ms); rank "
+          f"stability mean tau {rs['mean_tau']:+.3f}, min {rs['min_tau']:+.3f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dse_quick.json"
+        t0 = time.perf_counter()
+        run_tool("dse_sweep_torch.py", "--quick", "--backend", "torch",
+                 "--out", str(out))
+        cli_s = time.perf_counter() - t0
+        quick = json.loads(out.read_text())
+    thr = quick["throughput"]
+    print(f"[dse] dse_sweep_torch --quick ({quick['n_ops']} ops, "
+          f"{quick['n_specs']} specs, scan on {quick['device']}): fused "
+          f"{thr['fused_wall_s'] * 1e3:.1f} ms vs per-spec loop "
+          f"{thr['loop_wall_s'] * 1e3:.1f} ms, {thr['speedup']:.1f}x "
+          f"(floor {quick['floor_speedup']:.0f}x), bit-identical; "
+          f"{cli_s:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    print(f"[dse] phase 28: {seconds:.1f} s")
+    return {"rows": rows, "taus_across_captures": {
+                "min": min(taus), "mean": float(np.mean(taus))},
+            "run_dse": {"seconds": run_dse_s, "scan": zscan.row(),
+                        "rank_stability": rs, "vs_reference": vs_ref},
+            "quick": {"throughput": thr, "seconds": cli_s},
+            "launches": sum(r["scan"]["launches"] for r in rows)
+            + zscan.launches, "seconds": seconds}
+
+
+def serving_on_card(dev, check_kernels) -> dict:
+    """Phase 29, the serving simulator and ``serve_lm``: (a)
+    ``tools/serving_sweep_torch.py --quick`` in a process of its own,
+    whose exit code carries its three gates (wall budget, b=8 at least
+    1.5x b=1 tokens/s, Little's-law gap under 1e-6); (b)
+    ``build_zoo_cost_model`` for the four full models from the port's
+    captures and the six-policy sweep at 600 requests each (the CLI's full
+    mode): Pareto fronts, best policy, prefill us/token, the decode grid
+    and KV bytes a token, which must equal ``BENCH_serving.json``'s; every
+    time there is an A64FX-node estimate of the model, not a card time;
+    (c) ``examples/serve_lm_torch.py`` on the card for each of its two
+    models, K3, K4 and K5 counted from 0 around each: rule-following
+    accuracy above 0.5, K3 launched by chatglm3-6b's serving, K4 and K5 by
+    mamba2-1.3b's training and K4 by its serving; every shape, dtype and
+    B/C layout the example launched a kernel at is recorded and handed to
+    ``check_kernels``, which holds the kernel there against its plain
+    version (after the counts are read: those launches do not count)."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    sys.path.insert(0, str(ROOT / "tools"))
+    import serving_sweep_torch as sst
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "serving_quick.json"
+        run_tool("serving_sweep_torch.py", "--quick", "--out", str(out))
+        quick = json.loads(out.read_text())
+    gains = {mix: row["policies"]["fcfs_b8"]["tokens_per_s"]
+             / row["policies"]["fcfs_b1"]["tokens_per_s"]
+             for mix, row in quick["models"].items()}
+    print(f"[serving] serving_sweep_torch --quick: {quick['wall_s']:.2f} s; "
+          f"b8/b1 tokens/s " + ", ".join(f"{m} {g:.2f}x"
+                                         for m, g in gains.items())
+          + f" (gate {sst.QUICK_BATCH_GAIN}x); Little's-law gap < 1e-6")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = sst.run_full(sst.FULL_MODELS, sst.N_REQUESTS,
+                            Path(tmp) / "programs", Path(tmp) / "cost")
+    vs_ref = sst.against_reference(
+        json.loads(sst.REFERENCE_JSON.read_text()), full)
+    for arch, row in full["models"].items():
+        v = vs_ref[arch]
+        best = row["policies"][v["best_policy"]]
+        print(f"[serving] {arch} (A64FX-node estimates of the model, not "
+              f"card times): prefill {row['prefill_us_per_token']:.3f} "
+              f"us/token (reference {v['reference_prefill_us_per_token']:.3f})"
+              f", decode grid " + ", ".join(f"b{b} {t:.1f} us" for b, t in
+                                           row["decode_grid_us"])
+              + f"; KV {row['bytes_per_token']:.0f} B/token; best "
+              f"{v['best_policy']} {best['tokens_per_s']:.1f} tok/s, p99 "
+              f"TTFT {best['p99_ttft_ms']:.1f} ms (reference best "
+              f"{v['reference_best_policy']}); Pareto "
+              f"{', '.join(v['pareto'])} (reference "
+              f"{', '.join(v['reference_pareto'])}); {row['wall_s']:.1f} s")
+        if v["bytes_per_token"] != v["reference_bytes_per_token"]:
+            fail(f"{arch}: {v['bytes_per_token']} KV bytes a token, the "
+                 f"reference {v['reference_bytes_per_token']}")
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_torch", ROOT / "examples" / "serve_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    shapes = {name: set() for name in KERNELS}
+
+    def dtype_name(t):
+        return str(t.dtype).removeprefix("torch.")
+
+    def flash_at(q, k, v, out, causal):   # compare()'s arguments
+        B, H, Sq, D = q.shape
+        return (B, Sq, k.shape[2], H, k.shape[1], D, bool(causal),
+                dtype_name(q), q.stride(1) < q.stride(2))
+
+    def ssd_at(x, dt, A, Bm, Cm, *outputs):   # compare_ssd()'s arguments
+        B, nc, Q, H, P = x.shape
+        return (B, nc * Q, H, P, Bm.shape[-1], Q, dtype_name(x),
+                Bm.stride(3) == 0)
+
+    def recording(name, launch, signature):
+        def launch_and_record(*args):
+            shapes[name].add(signature(*args))
+            return launch(*args)
+        return launch_and_record
+
+    launchers = [(fa, "_launch", "flash_attention", flash_at),
+                 (ssd, "_launch", "ssd_scan", ssd_at),
+                 (ssd, "_launch_bwd", "ssd_scan_bwd", ssd_at)]
+    originals = [getattr(mod, attr) for mod, attr, _, _ in launchers]
+    served = {}
+    try:
+        for (mod, attr, name, signature), launch in zip(launchers,
+                                                        originals):
+            setattr(mod, attr, recording(name, launch, signature))
+        for arch in example.ARCHS_SERVED:
+            fa.flash_attention_bhsd.launches = ssd.ssd_chunk.launches = 0
+            ssd.ssd_chunk_bwd.launches = 0
+            t0 = time.perf_counter()
+            served[arch] = r = example.serve_arch(arch, device=dev)
+            torch.cuda.synchronize()
+            r["seconds"] = time.perf_counter() - t0
+            r["launches"] = {
+                "flash_attention": fa.flash_attention_bhsd.launches,
+                "ssd_scan": ssd.ssd_chunk.launches,
+                "ssd_scan_bwd": ssd.ssd_chunk_bwd.launches}
+    finally:
+        for (mod, attr, _, _), launch in zip(launchers, originals):
+            setattr(mod, attr, launch)
+    for arch, r in served.items():
+        print(f"[serve_lm] {arch}: rule-following accuracy {r['hits']}/"
+              f"{r['total']}, launches {r['launches']}, {r['seconds']:.1f} s")
+        if r["accuracy"] <= 0.5:
+            fail(f"serve_lm {arch}: accuracy {r['accuracy']:.3f}")
+    k = {a: r["launches"] for a, r in served.items()}
+    if not (k["chatglm3-6b"]["flash_attention"]
+            and k["mamba2-1.3b"]["ssd_scan"]
+            and k["mamba2-1.3b"]["ssd_scan_bwd"]):
+        fail(f"serve_lm launched {k}")
+    print("[serve_lm] the kernels at the example's shapes: " + "; ".join(
+        f"{name} {sorted(at)}" for name, at in shapes.items()))
+    checks = check_kernels(shapes)
+    seconds = time.perf_counter() - t_phase
+    print(f"[serving] phase 29: {seconds:.1f} s")
+    return {"quick": {"wall_s": quick["wall_s"], "b8_over_b1": gains},
+            "full": full, "vs_reference": vs_ref, "serve_lm": served,
+            "kernel_checks": checks,
+            "launches": {name: sum(r["launches"][name]
+                                   for r in served.values())
+                         for name in KERNELS}, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2755,6 +3058,19 @@ def main() -> int:
     zoo_phase = model_zoo(dev)
     clis = calibration_clis()
 
+    # 28.-29. hardware DSE and the serving simulator ----------------------
+    def check_at(shapes):
+        """K3, K4 and K5 against their plain versions at each shape a path
+        launched them with: ``{kernel: (max|err|, share of tolerance)}``."""
+        helpers = {"flash_attention": compare, "ssd_scan": compare_ssd,
+                   "ssd_scan_bwd": compare_ssd_bwd}
+        return {name: tuple(map(max, zip(*(helpers[name](*at)
+                                           for at in sorted(shapes[name])))))
+                for name in KERNELS if shapes[name]}
+
+    dse_phase = dse_on_card(dev, captures)
+    serving_phase = serving_on_card(dev, check_at)
+
     if failures:
         fail("; ".join(failures))
     scan_row = next(r for r in node_phase["kernel_vs_plain"]
@@ -2770,9 +3086,13 @@ def main() -> int:
     print(json.dumps({"sampled_estimation": sampling}))
     print(json.dumps({"model_zoo": zoo_phase}))
     print(json.dumps({"calibration_clis": clis}))
+    print(json.dumps({"dse": dse_phase}))
+    print(json.dumps({"serving_simulator": serving_phase}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in
                    servings + trainings + family_servings + [int8_record]}
                for k in KERNELS}
+    for k in KERNELS:
+        by_path[k]["serve_lm example"] = serving_phase["launches"][k]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2865,11 +3185,12 @@ def main() -> int:
         "replaces": "src/repro/core/compiled.py:412",
         "also_replaces": "src/repro/core/node.py:940",
         "launches": node_phase["launches"] + sampling["launches"]
-        + zoo_phase["launches"],
+        + zoo_phase["launches"] + dse_phase["launches"],
         "launches_by_path": {**{r["case"]: r["launches"]
                                 for r in node_phase["cases"]},
                              "sampled estimation": sampling["launches"],
-                             "model zoo": zoo_phase["launches"]},
+                             "model zoo": zoo_phase["launches"],
+                             "dse": dse_phase["launches"]},
         "max_abs_err": 0.0,
         "tolerance": "bit-identical to the plain version and to the NumPy "
                      "pass (0 elements differ)",

@@ -32,10 +32,11 @@ XLA collapses the layer loops into counted ops, so the port's programs are
 longer than the reference's and the two zoos agree in rank, not in bits.
 
 ``tools/model_zoo_torch.py`` is the CLI (``BENCH_model_zoo_torch.json``,
-DESIGN.md §16's schema).  Left out until their ROADMAP items land:
-``serving_cost_key``/``serving_cell_cost`` (the serving simulator) and
-``cluster_workload``/``mesh_rules_resolver``/``run_cluster`` (``parallel/``
-and meshes); each raises.
+DESIGN.md §16's schema).  ``serving_cell_cost`` prices the serving
+simulator's cells (``core.serving``), disk-cached under a key that hashes
+``FRONTEND_SCHEMA`` where the reference hashes its HLO cache schema.  Left
+out until ``parallel/`` and meshes land: ``cluster_workload``,
+``mesh_rules_resolver`` and ``run_cluster``; each raises.
 """
 from __future__ import annotations
 
@@ -75,6 +76,9 @@ ZOO_O3_QUEUE_DEPTHS = (16,)
 #: when the capture or ``aten.parse_graph``'s rules change what a cached
 #: Program means.
 FRONTEND_SCHEMA = 1
+
+#: The serving cost cells' schema counter (``serving_cell_cost``).
+SERVING_COST_SCHEMA = 1
 
 # ----------------------------------------------------------------- tracing
 # arch -> (config, model); shared across phases so one build serves
@@ -281,18 +285,80 @@ def trace_long_phase(arch: str, phase: str,
     return unroll_program(step, r), r
 
 
+# ------------------------------------------------------- serving cost cells
+def serving_cost_key(arch: str, phase: str, shape: ShapeConfig,
+                     n_cores: int, compute_dtype: str,
+                     param_dtype: str) -> str:
+    """Content hash for one serving cost cell (``serving_cell_cost``).
+
+    The hash covers everything the cached estimate depends on — the full
+    reduced config, the shape, the core count, both dtypes, both schema
+    counters — and the ``phase`` string itself.  The phase MUST be in the
+    key: the zoo's reduced prefill and decode shapes are deliberately
+    identical (``ZOO_PREFILL``/``ZOO_DECODE``: seq 256, batch 2), so a
+    shape-only key would silently serve a prefill estimate for a decode
+    cell.
+    """
+    cfg = zoo_config(arch)
+    payload = json.dumps({
+        "schema": SERVING_COST_SCHEMA,
+        "frontend_schema": FRONTEND_SCHEMA,
+        "config": dataclasses.asdict(cfg),
+        "shape": dataclasses.asdict(shape),
+        "phase": phase,
+        "n_cores": n_cores,
+        "compute_dtype": compute_dtype,
+        "param_dtype": param_dtype,
+    }, sort_keys=True, default=str)
+    return hashlib.sha256(payload.encode()).hexdigest()[:12]
+
+
+def serving_cell_cost(arch: str, phase: str,
+                      shape: Optional[ShapeConfig] = None,
+                      n_cores: int = 48,
+                      hw: HardwareSpec = A64FX_CORE,
+                      topology: Optional[NodeTopology] = None,
+                      compute_dtype: str = "f32",
+                      param_dtype: str = "float32",
+                      hlo_cache_dir: Optional[Path] = None,
+                      cost_cache_dir: Optional[Path] = None) -> float:
+    """Node-engine ``t_est_s`` of one (arch, phase, shape) serving cell.
+
+    The serving simulator (``core.serving``, DESIGN.md §21) prices prefill
+    and decode iterations from these cells; ``cost_cache_dir`` persists
+    each estimate as a small JSON file so serving sweeps never re-capture
+    or re-schedule a cell.  The file name embeds the phase AND the content
+    hash of :func:`serving_cost_key` — prefill/decode cells at the zoo's
+    equal reduced shapes land in different files with different hashes.
+    """
+    shape = shape or ZOO_SHAPES[phase]
+    cpath = None
+    if cost_cache_dir is not None:
+        key = serving_cost_key(arch, phase, shape, n_cores,
+                               compute_dtype, param_dtype)
+        cpath = Path(cost_cache_dir) / (
+            f"{arch}__serve_{phase}_s{shape.seq_len}b{shape.global_batch}"
+            f"_{n_cores}c.{key}.json")
+        if cpath.exists():
+            return float(json.loads(cpath.read_text())["t_est_s"])
+    prog = trace_phase(arch, phase, shape, param_dtype, hlo_cache_dir)
+    pe = estimate_program(prog, hw, (n_cores,),
+                          topology or hw.topology, "shard", compute_dtype,
+                          arch=arch, phase=phase)
+    t = float(pe.at(n_cores).t_est_s)
+    if cpath is not None:
+        cpath.parent.mkdir(parents=True, exist_ok=True)
+        cpath.write_text(json.dumps({
+            "schema": SERVING_COST_SCHEMA, "arch": arch, "phase": phase,
+            "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+            "n_cores": n_cores, "t_est_s": t}, indent=1))
+    return t
+
+
 # ------------------------------------------------ left out of this slice
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"zoo.{what} is not ported yet: it waits for "
                               f"{item} (ROADMAP queue 1)")
-
-
-def serving_cost_key(*args, **kw):
-    _not_ported("serving_cost_key", "the serving simulator")
-
-
-def serving_cell_cost(*args, **kw):
-    _not_ported("serving_cell_cost", "the serving simulator")
 
 
 def cluster_workload(*args, **kw):

@@ -41,7 +41,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {f"repro_torch.core.{m}" for m in (
         "hlo", "memory", "hwspec", "cost", "engine", "roofline", "stats",
         "compiled", "schedule", "pa", "simulate", "calibrate", "aten",
-        "node", "sample", "cluster", "zoo")} <= names
+        "node", "sample", "cluster", "zoo", "dse", "serving")} <= names
     assert {"repro_torch.kernels.stream", "repro_torch.kernels.sched_scan",
             "repro_torch.configs.a64fx_kernelsuite"} <= names
 
@@ -66,7 +66,8 @@ def test_the_port_tools_load_no_jax_and_no_repro(tool):
 def test_every_port_tool_is_covered():
     assert {t.stem for t in TOOLS} >= {
         "sched_throughput_torch", "kernel_suite_torch", "triad_torch",
-        "model_zoo_torch", "sampled_estimation_torch"}
+        "model_zoo_torch", "sampled_estimation_torch", "dse_sweep_torch",
+        "serving_sweep_torch"}
 
 
 @pytest.fixture

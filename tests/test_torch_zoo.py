@@ -173,8 +173,7 @@ def test_the_scan_backend_gives_the_same_zoo_cell():
     assert got["models"] == want["models"]
 
 
-@pytest.mark.parametrize("name", ["serving_cost_key", "serving_cell_cost",
-                                  "cluster_workload", "mesh_rules_resolver",
+@pytest.mark.parametrize("name", ["cluster_workload", "mesh_rules_resolver",
                                   "run_cluster"])
 def test_what_waits_for_a_later_item_raises(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
