@@ -194,7 +194,22 @@ Phases, in order; any failure exits non-zero and prints no result:
     layout the example launched K3, K4 or K5 at (K3 B 1, S 24, H 4 over
     one KV head; K4 and K5 B 32, nc 4, Q 16, H 16, P 16, N 16, broadcast
     B/C; K4 also B 1, nc 2) recorded around its launches and the kernel
-    held there against its plain version.
+    held there against its plain version;
+30. meshes (``parallel/``) on a 1x1 ("data", "model") ``DeviceMesh`` over
+    a one-rank NCCL group: mamba2-1.3b at full width, 8 of its 48 layers,
+    trained by ``launch.train.train_loop`` for 3 steps of 4 x 2048 tokens
+    without and with the mesh from the same seed and batches (the losses
+    within 1e-6 relative, equal bits expected; K4 48 and K5 24 launches
+    in each; the step's host ms side by side); the no-mesh state written
+    by ``AsyncCheckpointer``, restored onto the mesh by
+    ``restore(shardings=)`` bit for bit and stepped once (a finite loss);
+    chatglm3-6b at full width served by ``ServeEngine`` and
+    ``ServeEngine(rules=)``, 2 requests of 128 and 2048 tokens and 16 new
+    tokens (the same greedy tokens, K3 56 launches in each); every shape
+    the phase launched K3, K4 and K5 at held against the plain versions;
+    then ``tools/cluster_scaling_torch.py --quick`` (equal to the
+    reference's ``--quick``) and its full run on the host, with the ranks
+    and plan taus against ``BENCH_cluster.json``.
 
 The models are freed between phases.  After each model's serving phase,
 the profiler's kernel time of one prefill
@@ -204,13 +219,15 @@ Each serving and training phase sets every kernel's launch count to 0 just
 before it and reads the counts just after; so does the calibration path
 for K1 and K2, phase 20 for the scan around each case's torch run,
 phases 25, 26 and 28 for the scan around each sweep, phase 27 for K1 and
-K2, phase 29 for K3, K4 and K5 around each model of ``serve_lm``.
+K2, phase 29 for K3, K4 and K5 around each model of ``serve_lm``, phase
+30 around each training run, the restored step and each engine.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  There is no CPU path: without a CUDA device
 the script exits with 1.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -995,7 +1012,7 @@ def fig3_steps(dev, hw, servings, trainings, timed, read_launches,
         run = RunConfig(model=cfg, shape=ShapeConfig("smoke", TRAIN_SEQ,
                                                      batch, "train"))
         model = build_model(cfg, ssd_impl="kernel")
-        step, opt_init = make_train_step(model, run)
+        step, *_, opt_init = make_train_step(model, run)
         dtype = getattr(torch, run.param_dtype)
 
         def args(model=model, opt_init=opt_init, dtype=dtype, batch=batch):
@@ -1501,6 +1518,48 @@ def calibration_clis() -> dict:
             "summary": suite["summary"], "triad": triad["calibration"]}
 
 
+@contextlib.contextmanager
+def recording_shapes(shapes):
+    """While in the context, every launch of K3, K4 and K5 adds its shape,
+    dtype and B/C layout (the arguments of ``compare``, ``compare_ssd`` and
+    ``compare_ssd_bwd``) to ``shapes[kernel]``, so that the kernel can be
+    held there against its plain version afterwards."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def dtype_name(t):
+        return str(t.dtype).removeprefix("torch.")
+
+    def flash_at(q, k, v, out, causal):   # compare()'s arguments
+        B, H, Sq, D = q.shape
+        return (B, Sq, k.shape[2], H, k.shape[1], D, bool(causal),
+                dtype_name(q), q.stride(1) < q.stride(2))
+
+    def ssd_at(x, dt, A, Bm, Cm, *outputs):   # compare_ssd()'s arguments
+        B, nc, Q, H, P = x.shape
+        return (B, nc * Q, H, P, Bm.shape[-1], Q, dtype_name(x),
+                Bm.stride(3) == 0)
+
+    def recording(name, launch, signature):
+        def launch_and_record(*args):
+            shapes[name].add(signature(*args))
+            return launch(*args)
+        return launch_and_record
+
+    launchers = [(fa, "_launch", "flash_attention", flash_at),
+                 (ssd, "_launch", "ssd_scan", ssd_at),
+                 (ssd, "_launch_bwd", "ssd_scan_bwd", ssd_at)]
+    originals = [getattr(mod, attr) for mod, attr, _, _ in launchers]
+    try:
+        for (mod, attr, name, signature), launch in zip(launchers,
+                                                        originals):
+            setattr(mod, attr, recording(name, launch, signature))
+        yield shapes
+    finally:
+        for (mod, attr, _, _), launch in zip(launchers, originals):
+            setattr(mod, attr, launch)
+
+
 # phases 28-29: hardware DSE and the serving simulator
 def run_tool(script: str, *args: str) -> subprocess.CompletedProcess:
     """``tools/<script>`` in a process of its own with ``src`` on its path;
@@ -1714,35 +1773,8 @@ def serving_on_card(dev, check_kernels) -> dict:
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     shapes = {name: set() for name in KERNELS}
-
-    def dtype_name(t):
-        return str(t.dtype).removeprefix("torch.")
-
-    def flash_at(q, k, v, out, causal):   # compare()'s arguments
-        B, H, Sq, D = q.shape
-        return (B, Sq, k.shape[2], H, k.shape[1], D, bool(causal),
-                dtype_name(q), q.stride(1) < q.stride(2))
-
-    def ssd_at(x, dt, A, Bm, Cm, *outputs):   # compare_ssd()'s arguments
-        B, nc, Q, H, P = x.shape
-        return (B, nc * Q, H, P, Bm.shape[-1], Q, dtype_name(x),
-                Bm.stride(3) == 0)
-
-    def recording(name, launch, signature):
-        def launch_and_record(*args):
-            shapes[name].add(signature(*args))
-            return launch(*args)
-        return launch_and_record
-
-    launchers = [(fa, "_launch", "flash_attention", flash_at),
-                 (ssd, "_launch", "ssd_scan", ssd_at),
-                 (ssd, "_launch_bwd", "ssd_scan_bwd", ssd_at)]
-    originals = [getattr(mod, attr) for mod, attr, _, _ in launchers]
     served = {}
-    try:
-        for (mod, attr, name, signature), launch in zip(launchers,
-                                                        originals):
-            setattr(mod, attr, recording(name, launch, signature))
+    with recording_shapes(shapes):
         for arch in example.ARCHS_SERVED:
             fa.flash_attention_bhsd.launches = ssd.ssd_chunk.launches = 0
             ssd.ssd_chunk_bwd.launches = 0
@@ -1754,9 +1786,6 @@ def serving_on_card(dev, check_kernels) -> dict:
                 "flash_attention": fa.flash_attention_bhsd.launches,
                 "ssd_scan": ssd.ssd_chunk.launches,
                 "ssd_scan_bwd": ssd.ssd_chunk_bwd.launches}
-    finally:
-        for (mod, attr, _, _), launch in zip(launchers, originals):
-            setattr(mod, attr, launch)
     for arch, r in served.items():
         print(f"[serve_lm] {arch}: rule-following accuracy {r['hits']}/"
               f"{r['total']}, launches {r['launches']}, {r['seconds']:.1f} s")
@@ -1778,6 +1807,258 @@ def serving_on_card(dev, check_kernels) -> dict:
             "launches": {name: sum(r["launches"][name]
                                    for r in served.values())
                          for name in KERNELS}, "seconds": seconds}
+
+
+# phase 30: meshes (parallel/), the elastic restore, the cluster CLI
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 4, 3
+MESH_PROMPT_LENS, MESH_NEW_TOKENS = (128, 2048), 16
+MESH_LOSS_RTOL = 1e-6
+
+
+def meshes_on_card(dev, check_kernels) -> dict:
+    """Phase 30, the port's mesh path on a one-device mesh: (a)
+    ``launch.train.train_loop`` trains mamba2-1.3b at full width and depth
+    (48 layers) for 3 steps of 4 x 2048 tokens without a mesh and on a 1x1 ("data", "model")
+    ``DeviceMesh`` (a one-rank NCCL group; every parameter, optimizer leaf
+    and batch a replicated DTensor), from the same seed and batches: the
+    losses within 1e-6 relative (equal bits expected: one rank runs the
+    same ops on the same tensors), K4 and K5 launched as often, the step's
+    host ms side by side; (c) the no-mesh run's final state written by
+    ``AsyncCheckpointer``, restored through ``restore(shardings=)`` onto
+    the mesh bit for bit (the free space where it is written printed
+    beside its size), and one more step there with a finite loss; (b)
+    chatglm3-6b at full width served through ``ServeEngine`` and
+    ``ServeEngine(rules=)`` on the same mesh, 2 requests of 128 and 2048
+    tokens and 16 new tokens: the same greedy tokens, K3 launched 28 times
+    a request by each; every shape K3, K4 and K5 launched at is held
+    against its plain version (``check_kernels``); the group is destroyed
+    at the end; (d) ``tools/cluster_scaling_torch.py --quick`` (its numbers
+    must equal the reference's ``--quick``, or it exits 1) and its full
+    run on the host, ranks and plan taus against ``BENCH_cluster.json``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import (build_training, host_float,
+                                          place_batch, train_loop)
+    from repro_torch.models import params as pr
+    from repro_torch.models.lm import build_model
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import checkpoint as ck
+
+    def reset():
+        fa.flash_attention_bhsd.launches = ssd.ssd_chunk.launches = 0
+        ssd.ssd_chunk_bwd.launches = 0
+
+    def counts():
+        return {"flash_attention": fa.flash_attention_bhsd.launches,
+                "ssd_scan": ssd.ssd_chunk.launches,
+                "ssd_scan_bwd": ssd.ssd_chunk_bwd.launches}
+
+    t_phase = time.perf_counter()
+    shapes = {name: set() for name in KERNELS}
+    launches = {name: 0 for name in KERNELS}
+    out = {}
+    mesh = make_host_mesh(1, 1)            # a one-rank NCCL group
+    try:
+        with recording_shapes(shapes):
+            # (a) training, no mesh and 1x1 -------------------------------
+            cfg = ARCHS[SSM_ARCH]
+            run = RunConfig(model=cfg, shape=ShapeConfig(
+                "mesh", TRAIN_SEQ, MESH_TRAIN_BATCH, "train"))
+            model = build_model(cfg, ssd_impl="kernel")
+            runs = {}
+            for name, m in (("no mesh", None), ("mesh 1x1", mesh)):
+                gc.collect()
+                torch.cuda.empty_cache()
+                reset()
+                rep = train_loop(model, run, n_steps=MESH_TRAIN_STEPS,
+                                 seed=0, log_every=MESH_TRAIN_STEPS,
+                                 device=dev, mesh=m)
+                torch.cuda.synchronize()
+                runs[name] = (rep, counts())
+                for k, v in runs[name][1].items():
+                    launches[k] += v
+            (plain, k_plain), (meshed, k_mesh) = runs.values()
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(meshed.losses, plain.losses))
+            same_bits = meshed.losses == plain.losses
+            host = {n: [t * 1e3 for t in r.step_times]
+                    for n, (r, _) in runs.items()}
+            steady = {n: float(np.median(v[1:])) for n, v in host.items()}
+            print(f"[mesh] {SSM_ARCH} ({cfg.n_layers} layers) training, "
+                  f"losses no mesh {plain.losses}, 1x1 {meshed.losses}: "
+                  f"equal bits {same_bits}, max rel {rel:.3e}; launches "
+                  f"{k_plain} and {k_mesh}; step host ms no mesh "
+                  + ", ".join(f"{t:.1f}" for t in host["no mesh"])
+                  + "; 1x1 " + ", ".join(f"{t:.1f}" for t in host["mesh 1x1"])
+                  + f" (median after the first {steady['no mesh']:.1f} "
+                  f"against {steady['mesh 1x1']:.1f} ms, "
+                  f"{steady['mesh 1x1'] / steady['no mesh']:.3f}x)")
+            want = {"flash_attention": 0,
+                    "ssd_scan": 2 * cfg.n_layers * MESH_TRAIN_STEPS,
+                    "ssd_scan_bwd": cfg.n_layers * MESH_TRAIN_STEPS}
+            if k_plain != want or k_mesh != want:
+                fail(f"mesh training launches {k_plain}, {k_mesh}; want "
+                     f"{want}")
+            if not (rel <= MESH_LOSS_RTOL and all(np.isfinite(meshed.losses))):
+                fail(f"mesh training losses {meshed.losses} against "
+                     f"{plain.losses}")
+            out["training"] = {
+                "arch": SSM_ARCH, "layers": cfg.n_layers,
+                "batch": MESH_TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "losses_no_mesh": plain.losses,
+                "losses_mesh": meshed.losses, "equal_bits": same_bits,
+                "max_rel_loss_diff": rel, "step_host_ms": host,
+                "median_step_host_ms": steady,
+                "launches_no_mesh": k_plain, "launches_mesh": k_mesh}
+
+            # (c) the elastic restore of the no-mesh state onto the mesh --
+            state = plain.state
+            del runs, meshed
+            with tempfile.TemporaryDirectory() as tmp:
+                free = shutil.disk_usage(tmp).free
+                t0 = time.perf_counter()
+                saver = ck.AsyncCheckpointer()
+                saver.save(tmp, MESH_TRAIN_STEPS, state,
+                           extra={"seed": 0})
+                t_save = time.perf_counter() - t0
+                saver.wait()
+                t_write = time.perf_counter() - t0
+                step_fn, _, (p_sh, o_sh) = build_training(model, run, dev,
+                                                          mesh)
+                t0 = time.perf_counter()
+                at, restored, extra = ck.restore(
+                    tmp, state, shardings=(p_sh, o_sh), mesh=mesh)
+                t_restore = time.perf_counter() - t0
+            exact = all(torch.equal(a.to_local(), b) for a, b in zip(
+                ck.flatten(restored), ck.flatten(state)))
+            batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ,
+                                       MESH_TRAIN_BATCH, seed=0).batch(
+                MESH_TRAIN_STEPS)["tokens"]
+            batch = place_batch(model, run, {"tokens": torch.from_numpy(
+                batch).to(dev, torch.long)}, mesh)
+            reset()
+            _, _, metrics = step_fn(*restored, batch)
+            loss = host_float(metrics["loss"])
+            k_restore = counts()
+            for k, v in k_restore.items():
+                launches[k] += v
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in ck.flatten(state))
+            print(f"[mesh] elastic restore: {n_bytes / 2**30:.2f} GiB of "
+                  f"state at step {at} (extra {extra}; {free / 2**30:.1f} "
+                  f"GiB free where it was written); snapshot "
+                  f"{t_save:.2f} s, written {t_write:.2f} s, restored onto "
+                  f"the mesh {t_restore:.2f} s; bit for bit {exact}; the "
+                  f"next step's loss {loss:.4f}; launches {k_restore}")
+            if not (exact and at == MESH_TRAIN_STEPS and np.isfinite(loss)
+                    and extra == {"seed": 0}):
+                fail(f"elastic restore: exact {exact}, step {at}, loss "
+                     f"{loss}, extra {extra}")
+            out["elastic_restore"] = {
+                "state_bytes": n_bytes, "free_bytes": free,
+                "snapshot_s": t_save,
+                "write_s": t_write, "restore_s": t_restore,
+                "bit_for_bit": exact, "next_loss": loss,
+                "launches": k_restore}
+            del state, restored, step_fn, model, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) serving on the mesh ---------------------------------------
+            cfg = ARCHS[ARCH]
+            model = build_model(cfg, attn_impl="flash")
+            params = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16)
+            rng = np.random.default_rng(0)
+            prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+                       for n in MESH_PROMPT_LENS]
+            max_seq = max(MESH_PROMPT_LENS) + MESH_NEW_TOKENS
+            served = {}
+            for name, rules in (("no mesh", None),
+                                ("mesh 1x1", make_rules(mesh))):
+                engine = ServeEngine(model, params, max_seq=max_seq,
+                                     device=dev, rules=rules)
+                engine.generate([prompts[0][:16]], max_new_tokens=2)
+                torch.cuda.synchronize()
+                reset()
+                toks = engine.generate(prompts,
+                                       max_new_tokens=MESH_NEW_TOKENS)
+                torch.cuda.synchronize()
+                served[name] = (toks, counts(), engine.timings)
+                for k, v in served[name][1].items():
+                    launches[k] += v
+                del engine
+            (t_plain, k_plain, tm_plain), (t_mesh, k_mesh, tm_mesh) = \
+                served.values()
+            want = {"flash_attention": cfg.n_layers * len(prompts),
+                    "ssd_scan": 0, "ssd_scan_bwd": 0}
+            timing = {n: [{"prompt": t.prompt_len,
+                           "prefill_ms": t.prefill_s * 1e3,
+                           "decode_ms_per_token":
+                           t.decode_s * 1e3 / t.decode_steps}
+                          for t in tm] for n, (_, _, tm) in served.items()}
+            print(f"[mesh] {ARCH} served without and with the 1x1 mesh: "
+                  f"same tokens {t_plain == t_mesh}; launches {k_plain} "
+                  f"and {k_mesh} (want {want}); " + "; ".join(
+                      f"{n}: " + ", ".join(
+                          f"prompt {r['prompt']} prefill "
+                          f"{r['prefill_ms']:.1f} ms, decode "
+                          f"{r['decode_ms_per_token']:.1f} ms/token"
+                          for r in rows) for n, rows in timing.items()))
+            if t_plain != t_mesh or k_plain != want or k_mesh != want:
+                fail(f"mesh serving: tokens {t_mesh} against {t_plain}, "
+                     f"launches {k_plain}, {k_mesh}")
+            out["serving"] = {"arch": ARCH, "prompt_tokens":
+                              list(MESH_PROMPT_LENS),
+                              "new_tokens": MESH_NEW_TOKENS,
+                              "same_tokens": t_plain == t_mesh,
+                              "launches_no_mesh": k_plain,
+                              "launches_mesh": k_mesh, "timing": timing}
+            del model, params, served
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print("[mesh] the kernels at phase 30's shapes: " + "; ".join(
+        f"{name} {sorted(at)}" for name, at in shapes.items()))
+    out["kernel_checks"] = check_kernels(shapes)
+    out["launches"] = launches
+
+    # (d) the cluster CLI, on the host ----------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        quick_path, full_path = Path(tmp) / "quick.json", Path(tmp) / "full.json"
+        run_tool("cluster_scaling_torch.py", "--quick", "--out",
+                 str(quick_path))
+        quick = json.loads(quick_path.read_text())
+        t0 = time.perf_counter()
+        run_tool("cluster_scaling_torch.py", "--out", str(full_path))
+        full = json.loads(full_path.read_text())
+    ref = full["reference"]
+    print(f"[cluster] --quick equal to the reference's: "
+          f"{quick['reference_equal']}; full run {time.perf_counter() - t0:.1f}"
+          f" s ({full['wall_s']:.1f} s sweep): rank equal at "
+          + ", ".join(f"{n} {v}" for n, v in ref["rank_equal"].items())
+          + "; best plan equal " + json.dumps(ref["best_plan_equal"])
+          + "; plan taus against BENCH_cluster.json " + json.dumps(
+              {m: {n: round(t, 4) for n, t in v.items()}
+               for m, v in ref["plan_tau"].items()}))
+    out["cluster"] = {"quick_reference_equal": quick["reference_equal"],
+                      "rank": full["rank"], "kendall_tau": full["kendall_tau"],
+                      "against_reference": ref, "wall_s": full["wall_s"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase 30: {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2575,7 +2856,7 @@ def main() -> int:
             fail(f"{arch}: batch 0's loss did not fall ({loss_before} -> "
                  f"{loss_after})")
         # where the time goes: one more step under the profiler
-        step_fn, _ = build_training(model, run, dev)
+        step_fn, *_ = build_training(model, run, dev)
 
         def one_step():
             out = step_fn(params, opt_state, batch0)
@@ -3071,6 +3352,9 @@ def main() -> int:
     dse_phase = dse_on_card(dev, captures)
     serving_phase = serving_on_card(dev, check_at)
 
+    # 30. meshes, the elastic restore, the cluster CLI -----------------------
+    mesh_phase = meshes_on_card(dev, check_at)
+
     if failures:
         fail("; ".join(failures))
     scan_row = next(r for r in node_phase["kernel_vs_plain"]
@@ -3088,11 +3372,13 @@ def main() -> int:
     print(json.dumps({"calibration_clis": clis}))
     print(json.dumps({"dse": dse_phase}))
     print(json.dumps({"serving_simulator": serving_phase}))
+    print(json.dumps({"meshes": mesh_phase}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in
                    servings + trainings + family_servings + [int8_record]}
                for k in KERNELS}
     for k in KERNELS:
         by_path[k]["serve_lm example"] = serving_phase["launches"][k]
+        by_path[k]["phase 30 (mesh)"] = mesh_phase["launches"][k]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

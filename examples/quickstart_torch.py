@@ -53,7 +53,7 @@ def main(argv=None) -> SimReport:
     run = RunConfig(model=cfg, shape=ShapeConfig("quick", S, B, "train"),
                     param_dtype="float32", compute_dtype="float32",
                     learning_rate=1e-3)
-    step, opt_init = make_train_step(model, run)
+    step, *_, opt_init = make_train_step(model, run)
     opt = opt_init(params)
     gen = torch.Generator(device=dev).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,

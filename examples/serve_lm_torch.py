@@ -52,7 +52,7 @@ def train_briefly(model, cfg, steps=STEPS, batch=32, seq=64, lr=3e-3,
                         kind="train")
     run = RunConfig(model=cfg, shape=shape, param_dtype="float32",
                     compute_dtype="float32", learning_rate=lr)
-    step, init_state = build_training(model, run, dev)
+    step, init_state, _ = build_training(model, run, dev)
     params, opt = init_state(0)
     rng = np.random.default_rng(0)
     for i in range(steps):

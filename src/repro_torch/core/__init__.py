@@ -6,6 +6,7 @@ hardware parameter files (``hwspec``, with the ``H100`` test chip),
 calibration on the card (``calibrate``), the multi-core node engine
 (``node``, its batched passes also as a scan kernel on the card), and
 reporting (``roofline``, ``pa``, ``simulate``), sampled estimation
-(``sample``), the cluster engine (``cluster``) and the model zoo (``zoo``).
-DSE and the serving simulator are still to port (ROADMAP queue 1).
+(``sample``), the cluster engine (``cluster``), the model zoo with its
+cluster drivers (``zoo``), DSE (``dse``) and the serving simulator
+(``serving``).
 """

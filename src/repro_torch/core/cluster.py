@@ -1,10 +1,10 @@
 """Multi-node cluster engine: TofuD-style links over the node engine.
 
 A copy of ``repro.core.cluster``, held bit for bit against it: NumPy over
-the port's node engine (``_node_pass_batch``).  The model zoo's entry
-points that feed it registry models (``zoo.run_cluster`` with the
-MeshRules resolver) wait for ``parallel/`` (ROADMAP queue 1).  Every
-per-node program it builds keeps its source's ``exact_dtypes``.
+the port's node engine (``_node_pass_batch``).  The model zoo feeds it
+registry models (``zoo.run_cluster``, shard axes from the port's
+``parallel.sharding.MeshRules`` through ``zoo.mesh_rules_resolver``).
+Every per-node program it builds keeps its source's ``exact_dtypes``.
 
 The paper stops at one node; the ROADMAP's first open item scales the
 same methodology to a Fugaku-shaped mesh (DESIGN.md §20).  This module

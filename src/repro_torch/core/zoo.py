@@ -34,9 +34,11 @@ longer than the reference's and the two zoos agree in rank, not in bits.
 ``tools/model_zoo_torch.py`` is the CLI (``BENCH_model_zoo_torch.json``,
 DESIGN.md §16's schema).  ``serving_cell_cost`` prices the serving
 simulator's cells (``core.serving``), disk-cached under a key that hashes
-``FRONTEND_SCHEMA`` where the reference hashes its HLO cache schema.  Left
-out until ``parallel/`` and meshes land: ``cluster_workload``,
-``mesh_rules_resolver`` and ``run_cluster``; each raises.
+``FRONTEND_SCHEMA`` where the reference hashes its HLO cache schema.
+``run_cluster`` drives the cluster engine (``core.cluster``) over the
+zoo's train traces, its shard axes resolved by the port's
+``parallel.sharding.MeshRules`` (``mesh_rules_resolver``);
+``tools/cluster_scaling_torch.py`` is its CLI.
 """
 from __future__ import annotations
 
@@ -50,9 +52,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..configs import ARCHS, ZOO_SHAPES, reduced_config, zoo_phases_for
 from ..configs.base import ModelConfig, ShapeConfig
+from .cluster import ClusterResult, ClusterWorkload, ShardDecision, \
+    cluster_sweep
 from .cost import cost_program
 from .hlo import OpStat, Program
-from .hwspec import A64FX_CORE, HardwareSpec, NodeTopology
+from .hwspec import A64FX_CORE, ClusterTopology, HardwareSpec, NodeTopology
 from .node import compile_node, schedule_node, schedule_node_sweep
 from .roofline import roofline_from_program
 from .sample import SamplePlan, SamplingConfig, sample_program, \
@@ -61,6 +65,16 @@ from .sample import SamplePlan, SamplingConfig, sample_program, \
 #: Core counts the default sweep estimates at: one core, one full CMG,
 #: the whole 4-CMG node (mirrors the kernel suite's node section).
 DEFAULT_CORE_COUNTS: Tuple[int, ...] = (1, 12, 48)
+
+#: Node counts the cluster sweep scales over (powers of two to a rack-
+#: scale 1024; the ROADMAP's "Fugaku-shaped mesh" open item).
+DEFAULT_NODE_COUNTS: Tuple[int, ...] = (2, 4, 8, 16, 32, 64, 128, 256,
+                                        512, 1024)
+
+#: The cluster bench's default models: the largest MoE (expert
+#: parallelism in play) and the largest dense config in the registry.
+DEFAULT_CLUSTER_MODELS: Tuple[str, ...] = ("grok-1-314b",
+                                           "nemotron-4-340b")
 
 #: A64FX clock — node times convert to the paper's execution-cycle unit.
 DEFAULT_CLOCK_HZ = 1.8e9
@@ -201,7 +215,7 @@ def _phase_graph(arch: str, phase: str, shape: ShapeConfig,
         if phase == "train":
             run = RunConfig(model=cfg, shape=shape, param_dtype=param_dtype,
                             compute_dtype=param_dtype)
-            step, opt_init = make_train_step(model, run)
+            step, *_, opt_init = make_train_step(model, run)
             args = (params, opt_init(params), batch)
         elif phase == "prefill":
             prefill = make_prefill_step(model)
@@ -353,24 +367,6 @@ def serving_cell_cost(arch: str, phase: str,
             "seq_len": shape.seq_len, "global_batch": shape.global_batch,
             "n_cores": n_cores, "t_est_s": t}, indent=1))
     return t
-
-
-# ------------------------------------------------ left out of this slice
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"zoo.{what} is not ported yet: it waits for "
-                              f"{item} (ROADMAP queue 1)")
-
-
-def cluster_workload(*args, **kw):
-    _not_ported("cluster_workload", "parallel/ and meshes")
-
-
-def mesh_rules_resolver(*args, **kw):
-    _not_ported("mesh_rules_resolver", "parallel/ and meshes")
-
-
-def run_cluster(*args, **kw):
-    _not_ported("run_cluster", "parallel/ and meshes")
 
 
 # ------------------------------------------------------------- rank utility
@@ -745,5 +741,246 @@ def run_zoo(models: Optional[Sequence[str]] = None,
             report.estimates[arch][phase] = pe
             if progress is not None:
                 progress(arch, phase, pe, time.perf_counter() - tp0)
+    report.wall_s = time.perf_counter() - t0
+    return report
+
+
+# --------------------------------------------------------- cluster driver
+def cluster_workload(arch: str, phase: str = "train",
+                     shape: Optional[ShapeConfig] = None,
+                     param_dtype: str = "float32",
+                     hlo_cache_dir: Optional[Path] = None,
+                     decode_steps: int = 64) -> ClusterWorkload:
+    """Build one model's :class:`~.cluster.ClusterWorkload` from the zoo
+    trace: the reduced one-step program plus the shape facts the cluster
+    engine sizes collective payloads with (DESIGN.md §20).
+
+    Units are the zoo's reduced-trace units throughout — ``d_model``,
+    ``param_bytes`` and the activation payloads all come from the
+    reduced config, matching the traced compute so the collective/
+    compute *ratio* is structure-true even though absolute bytes are
+    toy-width.  ``frac_attn`` (the attention share of per-layer work,
+    which decides how much compute a tensor shard removes) comes from
+    the FULL config's per-layer parameter split — that ratio is what the
+    reduced form does NOT preserve.
+    """
+    full = ARCHS[arch]
+    rcfg = zoo_config(arch)
+    shape = shape or ZOO_SHAPES[phase]
+    prog = trace_phase(arch, phase, shape, param_dtype, hlo_cache_dir)
+    repeats = long_trace_repeats(arch, phase, decode_steps)
+    d, hd = full.d_model, full.head_dim
+    attn = d * full.n_heads * hd + 2 * d * full.n_kv_heads * hd \
+        + full.n_heads * hd * d
+    glu = 3 if full.mlp_kind in ("swiglu", "geglu") else 2
+    active_k = full.moe.top_k if full.moe is not None else 1
+    ffn = glu * d * full.d_ff * max(active_k, 1)
+    frac_attn = attn / (attn + ffn) if full.n_heads else 0.0
+    return ClusterWorkload(
+        name=arch, prog=prog, repeats=repeats, layers=rcfg.n_layers,
+        d_model=rcfg.d_model, seq_len=shape.seq_len,
+        batch=shape.global_batch,
+        # full traced depth in reduced-width units (the grad-sync payload)
+        param_bytes=float(rcfg.param_count()) * 4.0 * repeats,
+        frac_attn=frac_attn,
+        moe_top_k=full.moe.top_k if full.moe is not None else 0)
+
+
+def mesh_rules_resolver(arch: str):
+    """Shard-axis resolution for the cluster engine, delegated to the
+    REAL sharding table: a logical (data=1, model=tp) mesh duck-type
+    through ``parallel.sharding.MeshRules.param_spec`` on the FULL
+    config's parameter shapes — so the cluster engine inherits the
+    MeshRules divisibility fallback verbatim (grok's 8 experts ride
+    expert parallelism at tp<=8 but fall back to expert-TP via 'mlp' at
+    tp=16, exactly as the dry-run shards it).
+    """
+    cfg = ARCHS[arch]
+
+    def resolve(tp: int) -> ShardDecision:
+        if tp <= 1:
+            return ShardDecision(attn=False, mlp=False, experts=False)
+        from ..parallel.sharding import MeshRules
+
+        class _Devices:
+            shape = (1, tp)
+
+        class _Mesh:
+            axis_names = ("data", "model")
+            devices = _Devices()
+
+        rules = MeshRules(mesh=_Mesh())
+
+        def on_model(entry) -> bool:
+            if entry is None:
+                return False
+            if isinstance(entry, tuple):
+                return "model" in entry
+            return entry == "model"
+
+        d, hd = cfg.d_model, cfg.head_dim
+        wq = rules.param_spec(("embed", "heads", "head_dim"),
+                              (d, cfg.n_heads, hd))
+        attn = on_model(wq[1]) or on_model(wq[2])
+        if cfg.moe is not None:
+            we = rules.param_spec(("experts", "embed", "mlp"),
+                                  (cfg.moe.n_experts, d, cfg.d_ff))
+            experts = on_model(we[0])
+            mlp = on_model(we[2])
+        else:
+            experts = False
+            wi = rules.param_spec(("embed", "mlp"), (d, cfg.d_ff))
+            mlp = on_model(wi[1])
+        return ShardDecision(attn=attn, mlp=mlp, experts=experts)
+
+    return resolve
+
+
+@dataclass
+class ClusterReport:
+    """The cluster sweep: every (model, node count, plan) cell + ranks."""
+    hw: str
+    topology: str                    # node topology name
+    cluster: str                     # interconnect family (e.g. tofu_d)
+    n_cores: int
+    compute_dtype: str
+    node_counts: Tuple[int, ...]
+    # model -> every swept ClusterResult
+    results: Dict[str, List[ClusterResult]] = field(default_factory=dict)
+    wall_s: float = 0.0
+
+    def cells(self, model: str, n_nodes: int) -> List[ClusterResult]:
+        return [r for r in self.results.get(model, ())
+                if r.n_nodes == n_nodes]
+
+    def best(self, model: str, n_nodes: int) -> ClusterResult:
+        """The winning plan (min step time) for one (model, node count)."""
+        cells = self.cells(model, n_nodes)
+        if not cells:
+            raise KeyError(f"no cells for {model} at {n_nodes} nodes")
+        return min(cells, key=lambda r: r.t_step_s)
+
+    def rank_table(self, n_nodes: int) -> List[str]:
+        """Models ranked fastest-first by their best plan's step time."""
+        rows = [(self.best(m, n_nodes).t_step_s, m)
+                for m in self.results if self.cells(m, n_nodes)]
+        return [m for _, m in sorted(rows)]
+
+    def plan_rank_stability(self, model: str) -> Dict[str, float]:
+        """Kendall taus of the PLAN ranking between adjacent node counts,
+        over the (tp, pp) structures present at both — the cluster
+        analogue of the zoo's core-count rank stability: does the
+        parallel-efficiency ordering of plans survive scaling?"""
+        by_n: Dict[int, Dict[Tuple[int, int], float]] = {}
+        for r in self.results.get(model, ()):
+            by_n.setdefault(r.n_nodes, {})[(r.plan.tp, r.plan.pp)] = \
+                r.t_step_s
+        out: Dict[str, float] = {}
+        taus = []
+        for lo, hi in zip(self.node_counts, self.node_counts[1:]):
+            common = sorted(set(by_n.get(lo, {})) & set(by_n.get(hi, {})))
+            if len(common) < 2:
+                continue
+            tau = kendall_tau([by_n[lo][s] for s in common],
+                              [by_n[hi][s] for s in common])
+            out[f"{lo}->{hi}"] = tau
+            taus.append(tau)
+        out["min"] = min(taus) if taus else 1.0
+        return out
+
+    def to_dict(self) -> dict:
+        """The ``BENCH_cluster.json`` payload (schema: DESIGN.md §16)."""
+        models: Dict[str, dict] = {}
+        for name, rows in self.results.items():
+            plans: Dict[str, dict] = {}
+            scaling: Dict[str, dict] = {}
+            best_plan: Dict[str, str] = {}
+            for r in rows:
+                n = str(r.n_nodes)
+                plans.setdefault(n, {})[r.plan.label] = {
+                    "t_step_us": r.t_step_s * 1e6,
+                    "t_sched_us": r.t_sched_s * 1e6,
+                    "t_floor_us": r.t_floor_s * 1e6,
+                    "parallel_efficiency": r.parallel_efficiency,
+                    "tokens_per_s": r.tokens_per_s,
+                    "mesh_shape": list(r.mesh_shape),
+                    "microbatches": r.plan.microbatches,
+                    "ici_n_active": r.ici_n_active,
+                    "iterations": r.iterations,
+                    "hops": r.hops,
+                    "comm_s_by_kind": r.comm_s_by_kind,
+                    "decision": dataclasses.asdict(r.decision)
+                    if r.decision is not None else None,
+                }
+            for n_nodes in self.node_counts:
+                if not self.cells(name, n_nodes):
+                    continue
+                b = self.best(name, n_nodes)
+                best_plan[str(n_nodes)] = b.plan.label
+                scaling[str(n_nodes)] = {
+                    "plan": b.plan.label,
+                    "t_step_us": b.t_step_s * 1e6,
+                    "parallel_efficiency": b.parallel_efficiency,
+                    "tokens_per_s": b.tokens_per_s,
+                }
+            models[name] = {"plans": plans, "best_plan": best_plan,
+                            "scaling": scaling}
+        return {
+            "schema": 1,
+            "hw": self.hw,
+            "topology": self.topology,
+            "cluster": self.cluster,
+            "n_cores": self.n_cores,
+            "compute_dtype": self.compute_dtype,
+            "node_counts": list(self.node_counts),
+            "models": models,
+            "rank": {str(n): self.rank_table(n)
+                     for n in self.node_counts
+                     if any(self.cells(m, n) for m in self.results)},
+            "kendall_tau": {m: self.plan_rank_stability(m)
+                            for m in self.results},
+            "wall_s": self.wall_s,
+        }
+
+
+def run_cluster(models: Sequence[str] = DEFAULT_CLUSTER_MODELS,
+                node_counts: Sequence[int] = DEFAULT_NODE_COUNTS,
+                hw: HardwareSpec = A64FX_CORE,
+                n_cores: int = 48,
+                topology: Optional[NodeTopology] = None,
+                compute_dtype: str = "f32",
+                param_dtype: str = "float32",
+                phase: str = "train",
+                hlo_cache_dir: Optional[Path] = None,
+                microbatches: int = 8,
+                max_tp: int = 16, max_pp: int = 16,
+                cluster_factory=ClusterTopology.tofu_d,
+                progress=None) -> ClusterReport:
+    """Trace + sweep + rank the cluster scaling study end to end
+    (DESIGN.md §20): each model's train step through
+    :func:`~.cluster.cluster_sweep` over the node-count axis, shard
+    axes resolved by the real MeshRules table.  Returns a
+    :class:`ClusterReport`; ``benchmarks/cluster_scaling.py`` wraps
+    this with a wall-clock budget and writes ``BENCH_cluster.json``.
+    """
+    t0 = time.perf_counter()
+    topo = topology or hw.topology
+    report = ClusterReport(
+        hw=hw.name, topology=(topo.name if topo else "degenerate"),
+        cluster=cluster_factory(max(node_counts)).name.rsplit("_", 1)[0],
+        n_cores=n_cores, compute_dtype=compute_dtype,
+        node_counts=tuple(node_counts))
+    for m in models:
+        if m not in ARCHS:
+            raise ValueError(f"unknown arch {m!r}; known: {sorted(ARCHS)}")
+        w = cluster_workload(m, phase, param_dtype=param_dtype,
+                             hlo_cache_dir=hlo_cache_dir)
+        report.results[m] = cluster_sweep(
+            w, node_counts, hw=hw, n_cores=n_cores, topology=topo,
+            compute_dtype=compute_dtype,
+            resolver=mesh_rules_resolver(m), microbatches=microbatches,
+            max_tp=max_tp, max_pp=max_pp,
+            cluster_factory=cluster_factory,
+            progress=(lambda msg: progress(m, msg)) if progress else None)
     report.wall_s = time.perf_counter() - t0
     return report

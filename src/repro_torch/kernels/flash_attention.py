@@ -27,6 +27,8 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from . import _build
 
@@ -177,6 +179,21 @@ def _flash_backward(ctx, grad):
 
 
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _flash_sharding(q, k, v, causal, block_q, block_k):
+    """DTensor strategies, per mesh dim: all replicated, batch-sharded, or
+    head-sharded where the mesh's size divides both H and KVH (each shard
+    then keeps the query-to-KV-head map).  DTensor redistributes the inputs
+    to one of them, and the op runs on each rank's local shard."""
+    rest = [None, None, None]
+    out = [([Replicate()], [Replicate()] * 3 + rest),
+           ([Shard(0)], [Shard(0)] * 3 + rest)]
+    n = q.mesh.size()
+    if q.shape[1] % n == 0 and k.shape[1] % n == 0:
+        out.append(([Shard(1)], [Shard(1)] * 3 + rest))
+    return out
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -40,6 +40,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from . import _build
 
@@ -134,6 +136,20 @@ def _ssd_fwd_cuda(x, dt, A, Bm, Cm):
     y, states, gamma = _fwd_outputs(x, Bm.shape[-1])
     _launch(x, dt, A.float().contiguous(), Bm, Cm, y, states, gamma)
     return y, states, gamma
+
+
+@register_sharding(torch.ops.repro_torch.ssd_chunk_fwd.default)
+def _ssd_fwd_sharding(x, dt, A, Bm, Cm):
+    """DTensor strategies, per mesh dim: all replicated, batch-sharded (A
+    replicated), or head-sharded where the mesh's size divides H.  A
+    head-sharded B or C is a contiguous local copy, not the stride-0
+    broadcast; the kernel reads both."""
+    R, S = Replicate(), Shard
+    out = [([R] * 3, [R] * 5),
+           ([S(0)] * 3, [S(0), S(0), R, S(0), S(0)])]
+    if x.shape[3] % x.mesh.size() == 0:
+        out.append(([S(3), S(2), S(2)], [S(3), S(3), S(0), S(3), S(3)]))
+    return out
 
 
 @_ssd_fwd_op.register_fake
@@ -285,6 +301,18 @@ def _ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, dstates, dgamma):
     _launch_bwd(x, dt, A.float().contiguous(), Bm, Cm, dy,
                 dstates.contiguous(), dgamma.contiguous(), outs, scratch)
     return outs
+
+
+@register_sharding(torch.ops.repro_torch.ssd_chunk_bwd.default)
+def _ssd_bwd_sharding(x, dt, A, Bm, Cm, dy, dstates, dgamma):
+    """K4's strategies for K5: replicated, batch-sharded, head-sharded."""
+    R, S = Replicate(), Shard
+    out = [([R] * 5, [R] * 8),
+           ([S(0)] * 5, [S(0), S(0), R] + [S(0)] * 5)]
+    if x.shape[3] % x.mesh.size() == 0:
+        out.append(([S(3)] * 4 + [S(2)],
+                    [S(3), S(3), S(0), S(3), S(3), S(3), S(2), S(2)]))
+    return out
 
 
 @_ssd_bwd_op.register_fake

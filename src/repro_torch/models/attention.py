@@ -25,13 +25,28 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset,
+)
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from ..parallel.sharding import current_rules, full_value, lsc
 from .layers import apply_rope
 from .params import P
 
 NEG_INF = -1e30
+
+
+def _attn_seq_axis(q_shape) -> str:
+    """'sp_seq' when neither heads nor head_dim can ride the tensor axis:
+    attention activations then shard their sequence instead."""
+    rules = current_rules()
+    if rules is None:
+        return "seq"
+    spec = rules.act_spec(("batch", "seq", "heads", "head_dim"), q_shape)
+    return "seq" if spec[2] is not None else "sp_seq"
 
 
 def attn_params(cfg: ModelConfig) -> dict:
@@ -145,11 +160,16 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     B, _, H, D = q.shape
     Smax, KVH = cache_k.shape[1], cache_k.shape[2]
     G = H // KVH
+    cache_k = lsc(cache_k, "batch", "kvseq", "kv_heads", "head_dim")
+    cache_v = lsc(cache_v, "batch", "kvseq", "kv_heads", "head_dim")
     qg = q.reshape(B, KVH, G, D) / math.sqrt(D)
+    qg = lsc(qg, "batch", "kv_heads", "q_group", "head_dim")
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), cache_k.float())
+    s = lsc(s, "batch", "kv_heads", "q_group", "kvseq")
     invalid = torch.arange(Smax, device=q.device) >= length
     s = s.masked_fill(invalid, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    p = lsc(p, "batch", "kv_heads", "q_group", "kvseq")
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(cache_v.dtype), cache_v)
     return out.reshape(B, 1, H, D).to(q.dtype)
 
@@ -175,24 +195,46 @@ def decode_attention_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     B, _, H, D = q.shape
     Smax, KVH = ck.shape[1], ck.shape[2]
     G = H // KVH
+    ck = lsc(ck, "batch", "kvseq", "kv_heads", "head_dim")
+    cv = lsc(cv, "batch", "kvseq", "kv_heads", "head_dim")
     qg = q.reshape(B, KVH, G, D) / math.sqrt(D)
+    qg = lsc(qg, "batch", "kv_heads", "q_group", "head_dim")
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), ck.float())
     s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
+    s = lsc(s, "batch", "kv_heads", "q_group", "kvseq")
     invalid = torch.arange(Smax, device=q.device) >= length
     s = s.masked_fill(invalid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = p * v_scale.float().transpose(1, 2)[:, :, None, :]
+    p = lsc(p, "batch", "kv_heads", "q_group", "kvseq")
     out = torch.einsum("bhgk,bkhd->bhgd", p, cv.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def _write(buf: torch.Tensor, pos: int, x: torch.Tensor) -> None:
-    """``buf[:, pos:pos + S] = x``, in place, in ``buf``'s dtype."""
+    """``buf[:, pos:pos + S] = x``, in place, in ``buf``'s dtype.
+
+    A DTensor ``buf`` (a cache on a mesh, its sequence sharded on 'kvseq')
+    is written shard by shard: each rank copies the rows of ``x`` that fall
+    in its own slice of ``buf`` into its local tensor, since a slice across
+    a sharded dim cannot be assigned in place through DTensor's dispatch."""
     S = x.shape[1]
     if pos + S > buf.shape[1]:
         raise ValueError(f"decode at position {pos} overruns a cache of "
                          f"{buf.shape[1]}")
-    buf[:, pos:pos + S] = x.to(buf.dtype)
+    if not isinstance(buf, DTensor):
+        buf[:, pos:pos + S] = x.to(buf.dtype)
+        return
+    full = full_value(x)                        # a collective: every rank
+    shape, off = compute_local_shape_and_global_offset(
+        buf.shape, buf.device_mesh, buf.placements)
+    lo, hi = max(pos, off[1]), min(pos + S, off[1] + shape[1])
+    if lo >= hi:
+        return
+    rows = [slice(o, o + n) for o, n in zip(off, shape)]
+    rows[1] = slice(lo - pos, hi - pos)
+    buf.to_local()[:, lo - off[1]:hi - off[1]] = full[tuple(rows)].to(
+        buf.dtype)
 
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -231,8 +273,9 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out, new_cache = _self_attention(p, x, cfg, mode, positions, cache,
                                          cache_pos, causal, impl, kv_block)
     H, D = out.shape[2], out.shape[3]
+    out = lsc(out, "batch", _attn_seq_axis(out.shape), "heads", "head_dim")
     y = out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
-    return y, new_cache
+    return lsc(y, "batch", "rseq", "embed"), new_cache
 
 
 def _cross_attention(p: dict, x: torch.Tensor, mode: str,
@@ -240,6 +283,7 @@ def _cross_attention(p: dict, x: torch.Tensor, mode: str,
                      impl: str, kv_block: int):
     """The core of cross-attention (``attention_block``): (out, cache)."""
     q = project_q(p, x)
+    q = lsc(q, "batch", _attn_seq_axis(q.shape), "heads", "head_dim")
     if cross_x is not None:            # train / prefill: the cross cache
         k, v = project_kv(p, cross_x)
         new_cache = {"k": k, "v": v}
@@ -261,6 +305,7 @@ def _self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
                     kv_block: int):
     """The core of self-attention (``attention_block``): (out, cache)."""
     q, k, v = project_qkv(p, x, cfg)
+    q = lsc(q, "batch", _attn_seq_axis(q.shape), "heads", "head_dim")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if cfg.rope_fraction > 0:

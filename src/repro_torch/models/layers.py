@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import lsc
 from .params import P
 
 
@@ -100,6 +101,7 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
             h = F.relu(h).square()
         else:
             h = F.gelu(h, approximate="tanh")
+    h = lsc(h, "batch", "rseq", "mlp")
     return h @ p["wo"]
 
 
@@ -116,13 +118,12 @@ def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     x = p["table"][tokens]
     if cfg.name.startswith("paligemma"):  # gemma scales embeddings
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    return lsc(x, "batch", "rseq", "embed")
 
 
 def logits_from_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["table"].T
-    return x @ p["head"]
+    out = x @ (p["table"].T if cfg.tie_embeddings else p["head"])
+    return lsc(out, "batch", "rseq", "vocab")
 
 
 # --------------------------------------------------------------------- loss
@@ -131,7 +132,9 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     """Mean next-token cross-entropy in f32.  logits: (B,S,Vp) for tokens
     (B,S).  As in the reference, the padded vocabulary entries stay in the
     log-sum-exp; labels are always < ``vocab_size``."""
-    lg = logits[:, :-1].float()
+    # on a mesh the vocabulary is gathered first: DTensor's gather from a
+    # vocab-sharded tensor (a masked partial) fails on these 3-d indices
+    lg = lsc(logits[:, :-1].float(), "batch", "rseq", None)
     tg = tokens[:, 1:]
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, tg[..., None].long())[..., 0]

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve
+from ..parallel.sharding import lsc, lsc_param
 from . import params as pr
 from .attention import attention_block, attn_params
 from .layers import (
@@ -67,6 +68,14 @@ def stack_specs(tree, n: int):
     return pr.tree_map(
         lambda p: P((n,) + p.shape, ("layers",) + p.axes, p.init, p.scale,
                     p.dtype), tree)
+
+
+def constrain_params(param_tree, spec_tree):
+    """Pin a per-layer parameter tree to its logical (FSDP) sharding inside
+    the layer: a no-op for the forward values, and through the backward each
+    layer's weight cotangent lands in the same layout."""
+    return pr.tree_map(lambda a, p: lsc_param(a, *p.axes), param_tree,
+                       spec_tree)
 
 
 def layer_views(tree, n: int) -> list:
@@ -267,7 +276,10 @@ class LM:
                                               device=frames.device),
                                  cfg.d_model, frames.dtype)[None]
 
+        enc_specs = self._encoder_layer_specs()
+
         def layer(h, lp):
+            lp = constrain_params(lp, enc_specs)
             a, _ = attention_block(lp["attn"], apply_norm(lp["ln1"], h), cfg,
                                    mode="train", causal=False,
                                    impl=self.attn_impl,
@@ -289,8 +301,10 @@ class LM:
         positions = self._positions(x, pos)
         has_xattn = cfg.family == "audio"
         self_keys = ("k", "v", "k_scale", "v_scale")
+        layer_specs = self._dense_layer_specs()
 
         def layer(x, lp, lc):
+            lp = constrain_params(lp, layer_specs)
             sc = xc = None
             if lc is not None:
                 sc = {n: lc[n] for n in self_keys if n in lc}
@@ -314,7 +328,7 @@ class LM:
                                    dropped=self.moe_dropped)
             else:
                 f, aux = apply_mlp(lp["mlp"], f_in, cfg.mlp_kind), 0.0
-            return x + f, aux, kv, xkv
+            return lsc(x + f, "batch", "rseq", "embed"), aux, kv, xkv
 
         aux_sum = 0.0
         new = []
@@ -348,10 +362,17 @@ class LM:
                 for k in per_layer[0]}
 
     def _ssm_stack(self, params, x, mode: str, cache):
+        specs = {"ln": norm_params(self.cfg), "mamba": mamba_params(self.cfg)}
+
+        def layer(x, lp, lc):
+            x, new_lc = self._mamba_layer(x, constrain_params(lp, specs),
+                                          mode, lc)
+            return lsc(x, "batch", "rseq", "embed"), new_lc
+
         new = []
         for i, lp in enumerate(layer_views(params["layers"],
                                            self.cfg.n_layers)):
-            x, new_lc = self._run_layer(self._mamba_layer, mode, x, lp, mode,
+            x, new_lc = self._run_layer(layer, mode, x, lp,
                                         self._layer_cache(cache, i))
             new.append(new_lc)
         if mode == "prefill":
@@ -362,7 +383,8 @@ class LM:
         """zamba2: the shared attention+MLP block runs before every
         ``shared_attn_every``-th Mamba2 layer, starting at layer 0."""
         cfg = self.cfg
-        sp = params["shared_attn"]
+        sp = constrain_params(params["shared_attn"],
+                              self._encoder_layer_specs())
         positions = self._positions(x, pos)
         mamba_cache = None if cache is None else cache["mamba"]
 
@@ -463,6 +485,20 @@ class LM:
         if cfg.family == "audio":
             batch["frames"] = meta((B, cfg.n_frames, cfg.d_model), dtype)
         return batch
+
+
+    def batch_logical_axes(self, shape: ShapeConfig) -> dict:
+        """Logical axes of each model input of ``shape`` (``lsc``'s axes,
+        for the batch's placements on a mesh)."""
+        cfg = self.cfg
+        out = {"tokens": ("batch", "seq")}
+        if shape.kind == "decode":
+            out = {"tokens": ("batch", "seq"), "pos": ()}
+        if cfg.family == "vlm" and shape.kind != "decode":
+            out["img_embeds"] = ("batch", "seq", "embed")
+        if cfg.family == "audio" and shape.kind != "decode":
+            out["frames"] = ("batch", "frames", "embed")
+        return out
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "blocked",

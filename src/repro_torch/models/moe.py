@@ -9,8 +9,9 @@ first ``C`` assignments of each expert are kept: ``C`` comes from the shapes
 (``capacity``), so nothing waits on the device.  Dispatch is a gather of the
 kept tokens into an (E, C, d) block, combine a gather of the expert outputs
 back, weighted by the gates (0 for a dropped assignment), and an
-``index_add_`` into the tokens.  The reference's sharding constraints
-(``lsc``) have no counterpart without a mesh.
+``index_add_`` into the tokens.  The sharding constraints (``lsc``) sit
+where the reference's do; the experts-leading (E, G*C, f) hidden block is
+pinned as ('experts', 'batch', 'mlp'), G being outermost in G*C.
 
 ``jax.lax.top_k`` breaks ties by the lower index and ``torch.topk``
 promises no order among equal values: the two packages route alike where
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import lsc
 from .params import P
 
 
@@ -110,9 +112,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, train: bool,
         dropped.append((~keep).sum())
     xpad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
     dispatched = torch.gather(xpad, 1, src[..., None].expand(-1, -1, d))
+    dispatched = lsc(dispatched.reshape(G, E, C, d), "batch", "experts",
+                     "capacity", "embed")
 
     # expert FFN, experts leading: (E, G*C, d) x (E, d, f)
-    xe = dispatched.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    xe = dispatched.transpose(0, 1).reshape(E, G * C, d)
     if "wi_gate" in p:
         g = torch.bmm(xe, p["wi_gate"])
         u = torch.bmm(xe, p["wi_up"])
@@ -123,7 +127,9 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, train: bool,
         h = torch.bmm(xe, p["wi"])
         h = F.relu(h).square() if cfg.mlp_kind == "sq_relu" \
             else F.gelu(h, approximate="tanh")
+    h = lsc(h, "experts", "batch", "mlp")      # (E, G*C, f): G outermost
     ys = torch.bmm(h, p["wo"]).reshape(E, G, C, d).transpose(0, 1)
+    ys = lsc(ys, "batch", "experts", "capacity", "embed")
 
     # combine: each assignment's expert output (0 where dropped), weighted by
     # its gate, added into its token

@@ -106,6 +106,24 @@ def init(tree, gen: torch.Generator, dtype: torch.dtype = torch.float32):
     return tree_map(lambda p: _init_leaf(gen, p, dtype), tree)
 
 
+def shardings(tree, rules):
+    """Placements tree from a spec tree + ``parallel.sharding.MeshRules``:
+    each leaf the DTensor placements (one per mesh dim) of the reference's
+    ``NamedSharding``."""
+    return tree_map(lambda p: rules.param_placements(p.axes, p.shape), tree)
+
+
+def distribute(tree, placements, mesh):
+    """Each tensor of ``tree`` as a DTensor on ``mesh`` with the placements
+    of the same leaf of ``placements`` (a ``shardings`` tree).  Every rank
+    holds the whole tree and keeps its own shard: no data moves between
+    ranks, and a replicated leaf keeps the tensor's storage."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(lambda t, pl: distribute_tensor(
+        t, mesh, list(pl), src_data_rank=None), tree, placements)
+
+
 def count(tree) -> int:
     return sum(math.prod(p.shape) for p in leaves(tree))
 

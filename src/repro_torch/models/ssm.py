@@ -7,10 +7,11 @@ decode uses the O(1) recurrence.  ``apply_mamba`` takes ``impl``:
 * ``"chunked"`` — ``ssd_chunked`` in plain PyTorch, the counterpart of the
   reference's ``"jnp"`` path (and, like it, M rounded to x's dtype);
 * ``"kernel"`` — ``kernels.ops.ssd_scan``, the counterpart of the
-  reference's ``"pallas"`` path (its ``ssd_pallas_sharded`` outside a mesh:
-  sharding waits for the port of ``parallel/``), with dt cast to x's dtype
-  as there: the intra-chunk kernel K4 on CUDA tensors, its plain version on
-  CPU tensors.
+  reference's ``"pallas"`` path, with dt cast to x's dtype as there: the
+  intra-chunk kernel K4 on CUDA tensors, its plain version on CPU tensors.
+  On a mesh its custom ops take DTensor sharding strategies (batch, and
+  heads), where the reference's ``ssd_pallas_sharded`` wraps the kernel
+  in a ``shard_map``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops as kops
+from ..parallel.sharding import lsc
 from .layers import rms_norm_gated
 from .params import P
 
@@ -188,6 +190,7 @@ def apply_mamba(p: dict, x_in: torch.Tensor, cfg: ModelConfig, *, mode: str,
     Br = x_in @ p["wB"]
     Cr = x_in @ p["wC"]
     dt_raw = x_in @ p["wdt"]
+    xr = lsc(xr, "batch", "seq", "inner")
 
     cx = cache.get("conv_x") if cache else None
     cB = cache.get("conv_B") if cache else None
@@ -199,7 +202,11 @@ def apply_mamba(p: dict, x_in: torch.Tensor, cfg: ModelConfig, *, mode: str,
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    xh = xr.reshape(Bsz, S, nh, Pd)
+    # shard SSD heads on 'model': the (B, nc, H, Q, Q) intra-chunk matrices
+    # ride the tensor axis
+    xh = lsc(xr.reshape(Bsz, S, nh, Pd), "batch", "seq", "ssm_heads",
+             "head_dim")
+    dt = lsc(dt, "batch", "seq", "ssm_heads")
     Bm = Br.reshape(Bsz, S, G, N)
     Cm = Cr.reshape(Bsz, S, G, N)
 
@@ -230,7 +237,7 @@ def apply_mamba(p: dict, x_in: torch.Tensor, cfg: ModelConfig, *, mode: str,
     y = y + xh * p["D"].to(y.dtype)[:, None]
     y = y.reshape(Bsz, S, di)
     y = rms_norm_gated(y, p["norm"], z)
-    return y @ p["out_proj"], new_cache
+    return lsc(y @ p["out_proj"], "batch", "rseq", "embed"), new_cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

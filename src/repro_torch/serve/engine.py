@@ -4,6 +4,13 @@ Counterpart of ``repro.serve.engine``.  ``ServeEngine`` prefills each request
 on its own, pads the cache's ``kvseq`` axis to ``max_seq`` and then decodes
 greedily (or with temperature) one token at a time, as the reference does.
 It runs on ``cuda`` unless built with ``device="cpu"``.
+
+With ``rules`` (a ``parallel.sharding.MeshRules`` on a ``DeviceMesh``) the
+engine serves on the mesh: its parameters become DTensors placed by the
+parameter rules (``serve_shardings``), the padded cache is placed by
+``kvcache.cache_shardings`` (its sequence sharded on 'kvseq'), decode
+writes each rank's own slice of it (``models.attention._write``), and the
+logits are gathered whole before a token is picked.
 """
 from __future__ import annotations
 
@@ -14,9 +21,12 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..configs.base import ShapeConfig
 from ..device import resolve
 from ..models import params as pr
 from ..models.lm import LM
+from ..parallel.sharding import MeshRules, full_value, use_rules
+from .kvcache import cache_shardings
 
 
 def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator], *,
@@ -33,23 +43,37 @@ def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator], *,
 
 
 # -------------------------------------------------------------- step functions
-def make_prefill_step(model: LM):
+def make_prefill_step(model: LM, rules: Optional[MeshRules] = None):
     """(params, batch) -> (last-position logits, cache)."""
 
     def prefill_step(params, batch):
-        return model.prefill_fn(params, batch)
+        with use_rules(rules):
+            return model.prefill_fn(params, batch)
 
     return prefill_step
 
 
-def make_decode_step(model: LM):
+def make_decode_step(model: LM, rules: Optional[MeshRules] = None):
     """(params, cache, batch{tokens(B,1), pos}) -> (next_token, cache)."""
 
     def decode_step(params, cache, batch):
-        logits, new_cache = model.decode_fn(params, cache, batch)
-        return torch.argmax(logits, dim=-1), new_cache
+        with use_rules(rules):
+            logits, new_cache = model.decode_fn(params, cache, batch)
+            return torch.argmax(logits, dim=-1), new_cache
 
     return decode_step
+
+
+def serve_shardings(model: LM, shape: ShapeConfig, rules: MeshRules,
+                    param_dtype: torch.dtype = torch.bfloat16):
+    """(parameter, cache, batch) placement trees for a decode cell."""
+    p_sh = pr.shardings(model.param_specs(), rules)
+    c_sh = cache_shardings(model, shape.global_batch, shape.seq_len, rules)
+    b_axes = model.batch_logical_axes(shape)
+    specs = model.input_specs(shape, param_dtype)
+    b_sh = {k: rules.act_placements(b_axes.get(k, ()), getattr(s, "shape", ()))
+            for k, s in specs.items()}
+    return p_sh, c_sh, b_sh
 
 
 # ------------------------------------------------------------------ the engine
@@ -81,14 +105,24 @@ class ServeEngine:
 
     def __init__(self, model: LM, params, *, max_seq: int = 512,
                  temperature: float = 0.0, seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 rules: Optional[MeshRules] = None):
         self.device = resolve(device)
         for t in pr.leaves(params):
             if t.device.type != self.device.type:
                 raise ValueError(f"parameters on {t.device}, engine on "
                                  f"{self.device}")
+        if rules is not None:
+            if rules.mesh.device_type != self.device.type:
+                raise ValueError(f"a {rules.mesh.device_type} mesh for an "
+                                 f"engine on {self.device}")
+            params = pr.tree_map(
+                lambda t, pl: t if hasattr(t, "placements") else
+                pr.distribute(t, pl, rules.mesh),
+                params, pr.shardings(model.param_specs(), rules))
         self.model = model
         self.params = params
+        self.rules = rules
         self.max_seq = max_seq
         self.temperature = temperature
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -101,7 +135,12 @@ class ServeEngine:
         logits, cache = self.model.prefill_fn(self.params,
                                               {"tokens": toks, **(extra or {})})
         # grow cache KV seq axis to max_seq so decode can write into it
-        return logits, self._pad_cache(cache)
+        cache = self._pad_cache(cache)
+        if self.rules is not None:
+            cache = pr.tree_map(
+                lambda x, pl: x.redistribute(x.device_mesh, pl), cache,
+                cache_shardings(self.model, 1, self.max_seq, self.rules))
+        return logits, cache
 
     def _pad_cache(self, cache):
         """Pad the leaves' 'kvseq' axis to ``max_seq``: the k/v of the
@@ -127,10 +166,10 @@ class ServeEngine:
         return pr.tree_map(pad_leaf, cache, self.model.cache_specs(1, target))
 
     def _next(self, logits: torch.Tensor) -> torch.Tensor:
-        return sample_logits(logits, self.gen, temperature=self.temperature)
+        return sample_logits(full_value(logits), self.gen,
+                             temperature=self.temperature)
 
     # ---------------------------------------------------------------- serve
-    @torch.inference_mode()
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 16,
                  extra_inputs: Optional[Dict[str, Any]] = None,
                  eos_id: Optional[int] = None) -> List[List[int]]:
@@ -138,7 +177,15 @@ class ServeEngine:
         ``extra_inputs`` go into every prefill's batch beside the tokens:
         ``img_embeds`` (1, n_img_tokens, d) for vlm, ``frames`` (1, n_frames,
         d) for audio, on the engine's device in the parameters' dtype.
-        Per-request host-clock times land in ``self.timings``."""
+        Per-request host-clock times land in ``self.timings``.  Runs under
+        ``torch.inference_mode``, on a mesh under ``torch.no_grad`` (DTensor
+        views made in inference mode fail on their version counter)."""
+        grad_off = torch.no_grad if self.rules else torch.inference_mode
+        with grad_off(), use_rules(self.rules):
+            return self._generate(prompts, max_new_tokens, extra_inputs,
+                                  eos_id)
+
+    def _generate(self, prompts, max_new_tokens, extra_inputs, eos_id):
         outs: List[List[int]] = []
         self.timings = []
         for prompt in prompts:

@@ -21,12 +21,19 @@ def cache_abstract(model: LM, batch: int, max_seq: int,
     """The cache tree as tensors without storage, each leaf at its own dtype
     (else ``dtype``): ``meta`` tensors by default; under a
     ``FakeTensorMode``, fake tensors on ``device`` (the model zoo traces a
-    decode step over these).  The reference's ``ShapeDtypeStruct`` tree;
-    ``cache_shardings`` waits for ``parallel/``."""
+    decode step over these).  The reference's ``ShapeDtypeStruct`` tree."""
     return pr.tree_map(
         lambda p: torch.empty(p.shape, dtype=pr.leaf_dtype(p, dtype),
                               device=device),
         model.cache_specs(batch, max_seq))
+
+
+def cache_shardings(model: LM, batch: int, max_seq: int, rules):
+    """Placements tree of the cache (``parallel.sharding.MeshRules``'
+    activation rules on the cache specs' logical axes: the sequence of the
+    k/v leaves on 'kvseq')."""
+    return pr.tree_map(lambda p: rules.act_placements(p.axes, p.shape),
+                       model.cache_specs(batch, max_seq))
 
 
 def cache_bytes(model: LM, batch: int, max_seq: int,

@@ -20,9 +20,10 @@ recovery mechanism* — the same contract a 1000-node synchronous job has.
 
 ``FaultInjector`` provides deterministic failures for tests/examples.
 
-Counterpart of ``repro.train.fault`` over ``train/checkpoint.py``; the
-reference's restart-mesh ``shardings`` wait for meshes (ROADMAP queue 1,
-``parallel/``).
+Counterpart of ``repro.train.fault`` over ``train/checkpoint.py``:
+``shardings`` (placement trees shaped like the state) lays a restore out
+on the restart mesh; without them a DTensor state restores onto its own
+mesh and placements.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ def run_with_retries(
     straggler_patience: int = 3,
     injector: Optional[FaultInjector] = None,
     state_like: Optional[Any] = None,    # tree for restore structure
+    shardings: Optional[Any] = None,     # restart-mesh placements (elastic)
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
 ) -> LoopReport:
     restarts = 0
@@ -91,7 +93,8 @@ def run_with_retries(
         if last is None:
             return 0, init_state()
         like = state_like if state_like is not None else init_state()
-        step, state, _ = ckpt_lib.restore(ckpt_dir, like, step=last)
+        step, state, _ = ckpt_lib.restore(ckpt_dir, like, step=last,
+                                          shardings=shardings)
         return step, state
 
     step, state = restore_or_init()

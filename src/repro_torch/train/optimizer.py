@@ -165,3 +165,37 @@ def make_optimizer(name: str, cfg: Optional[OptConfig] = None):
         return (lambda p: adafactor_init(p, cfg),
                 lambda g, s, p, lr: adafactor_update(g, s, p, lr, cfg), cfg)
     raise ValueError(f"unknown optimizer {name}")
+
+
+def state_spec_tree(name: str, param_specs, cfg: Optional[OptConfig] = None):
+    """Optimizer-state tree of P-leaves (shapes + logical axes) derived from
+    the parameter spec tree: the state shards exactly like its parameter
+    (ZeRO-3).  The trainer's optimizer placements come from it."""
+    P = pr.P
+    cfg = cfg or OptConfig(name=name)
+    scalar = P((), (), "zeros")
+    if name == "adamw":
+        mirror = pr.tree_map(lambda p: P(p.shape, p.axes, "zeros"),
+                             param_specs)
+        return AdamWState(step=scalar, mu=mirror, nu=mirror)
+    if name == "adafactor":
+        def vr(p):
+            if _factored(p.shape, cfg):
+                return P(p.shape[:-1], p.axes[:-1], "zeros")
+            return P((1,), (None,), "zeros")
+
+        def vc(p):
+            if _factored(p.shape, cfg):
+                return P(p.shape[:-2] + p.shape[-1:],
+                         p.axes[:-2] + p.axes[-1:], "zeros")
+            return P((1,), (None,), "zeros")
+
+        def v(p):
+            if _factored(p.shape, cfg):
+                return P((1,), (None,), "zeros")
+            return P(p.shape, p.axes, "zeros")
+
+        return AdafactorState(step=scalar, vr=pr.tree_map(vr, param_specs),
+                              vc=pr.tree_map(vc, param_specs),
+                              v=pr.tree_map(v, param_specs))
+    raise ValueError(f"unknown optimizer {name}")

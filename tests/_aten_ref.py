@@ -57,7 +57,7 @@ def programs(arch: str, what: str):
             .as_text()
         trun = RunConfig(model=tcfg, shape=ShapeConfig("t", S, B, "train"),
                          **KW)
-        step, opt_init = make_train_step(tm, trun)
+        step, *_, opt_init = make_train_step(tm, trun)
         gm = aten.capture(step, tp, opt_init(tp), tbatch)
     else:
         text = jax.jit(jm.prefill_fn).lower(tree, jbatch).compile().as_text()

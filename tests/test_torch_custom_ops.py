@@ -191,7 +191,7 @@ def test_a_captured_kernel_path_step_has_one_custom_call_per_kernel_call(
         model.attn_impl = "blocked"      # K3 has no backward
         run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, 2, "train"),
                         param_dtype="float32", compute_dtype="float32")
-        step, opt_init = make_train_step(model, run)
+        step, *_, opt_init = make_train_step(model, run)
         fn, args = step, (params, opt_init(params), batch)
         n_ssm = cfg.n_layers
         want = {"flash_attention": 0, "ssd_chunk_fwd": 2 * n_ssm,

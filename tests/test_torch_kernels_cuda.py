@@ -559,7 +559,8 @@ def test_reduced_training_through_k5_matches_chunked(cuda_device, arch):
     for t in leaves:
         t.requires_grad_(False)
     run = RunConfig(model=cfg, shape=ShapeConfig("t", 40, 2, "train"))
-    step, opt_init = make_train_step(build_model(cfg, ssd_impl="kernel"), run)
+    step, *_, opt_init = make_train_step(build_model(cfg, ssd_impl="kernel"),
+                                         run)
     before = ssd.ssd_chunk.launches, ssd.ssd_chunk_bwd.launches
     params = pr.tree_map(lambda t: t.detach().bfloat16(), params)
     _, _, metrics = step(params, opt_init(params), toks)
@@ -673,7 +674,7 @@ def test_capture_on_the_card_has_one_custom_call_per_launch(cuda_device,
     toks = {"tokens": torch.from_numpy(np.random.default_rng(25).integers(
         0, cfg.vocab_size, size=(2, 64))).to(cuda_device)}
     run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"))
-    step, opt_init = make_train_step(model, run)
+    step, *_, opt_init = make_train_step(model, run)
     flash = build_model(cfg, attn_impl="flash", ssd_impl="kernel")
 
     def prefill(p, b):

@@ -44,6 +44,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "node", "sample", "cluster", "zoo", "dse", "serving")} <= names
     assert {"repro_torch.kernels.stream", "repro_torch.kernels.sched_scan",
             "repro_torch.configs.a64fx_kernelsuite"} <= names
+    # slice 13: meshes
+    assert {"repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.collectives", "repro_torch.launch.mesh",
+            "repro_torch.train.grad_compress"} <= names
 
 
 TOOLS = sorted((SRC.parent / "tools").glob("*_torch.py"))

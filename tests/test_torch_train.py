@@ -137,7 +137,7 @@ def _check_two_steps(arch, impl, jimpl, microbatch):
     jo = jopt_init(jp)
     ref_grads = _ref_grad_fn(jmodel)
     tmodel = build_model(tcfg, ssd_impl=impl)
-    tstep, topt_init = make_train_step(tmodel, trun)
+    tstep, *_, topt_init = make_train_step(tmodel, trun)
     assert isinstance(topt_init(params_from_jax(tree, tcfg, device="cpu")),
                       AdamWState)
 
@@ -181,7 +181,7 @@ def _check_first_step_spread(arch, impl, jimpl):
     jp = jax.tree.map(jnp.asarray, tree)
     jp, _, _ = jax.jit(jstep)(jp, jopt_init(jp), {"tokens": jnp.asarray(toks)})
     tmodel = build_model(tcfg, ssd_impl=impl)
-    tstep, topt_init = make_train_step(tmodel, trun)
+    tstep, *_, topt_init = make_train_step(tmodel, trun)
     tp = params_from_jax(tree, tcfg, device="cpu")
     tp, _, _ = tstep(tp, topt_init(tp), {"tokens": torch.from_numpy(toks)
                                          .long()})
@@ -201,7 +201,7 @@ def test_eval_step_matches_the_train_steps_loss():
     params = model.init(torch.Generator().manual_seed(0))
     toks = torch.from_numpy(JDataset(tcfg.vocab_size, 32, 2).batch(0)
                             ["tokens"]).long()
-    step, opt_init = make_train_step(model, trun)
+    step, *_, opt_init = make_train_step(model, trun)
     ev = make_eval_step(model, trun)({"p": params}["p"], {"tokens": toks})
     _, _, m = step(params, opt_init(params), {"tokens": toks})
     assert float(ev["loss"]) == pytest.approx(float(m["loss"]), rel=1e-6)
@@ -227,6 +227,8 @@ def test_remat_changes_nothing_but_memory():
 
 
 def test_train_step_refuses_a_mesh():
+    """A mesh comes as ``MeshRules``; anything else is refused (the mesh
+    path itself: tests/test_torch_mesh_train.py)."""
     _, tcfg, _, trun = _runs("chatglm3-6b", 0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="MeshRules"):
         make_train_step(build_model(tcfg), trun, rules=object())

@@ -176,5 +176,26 @@ def test_the_scan_backend_gives_the_same_zoo_cell():
 @pytest.mark.parametrize("name", ["cluster_workload", "mesh_rules_resolver",
                                   "run_cluster"])
 def test_what_waits_for_a_later_item_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        getattr(zoo, name)("chatglm3-6b")
+    """These three raised until ``parallel/`` was ported; now each runs on
+    chatglm3-6b and agrees with the reference (their full parity:
+    ``test_torch_cluster_drivers.py``)."""
+    if name == "cluster_workload":
+        a, b = ref_zoo.cluster_workload("chatglm3-6b"), \
+            zoo.cluster_workload("chatglm3-6b")
+        for k in ("frac_attn", "layers", "d_model", "param_bytes",
+                  "repeats", "seq_len", "batch", "moe_top_k"):
+            assert getattr(b, k) == getattr(a, k), k
+    elif name == "mesh_rules_resolver":
+        ref, port = (z.mesh_rules_resolver("chatglm3-6b")
+                     for z in (ref_zoo, zoo))
+        for tp in range(1, 17):
+            assert dataclasses.asdict(port(tp)) == \
+                dataclasses.asdict(ref(tp)), tp
+    else:
+        kw = dict(models=["chatglm3-6b"], node_counts=(2, 4))
+        got, want = (z.run_cluster(**kw).to_dict() for z in (zoo, ref_zoo))
+        assert got["rank"] == want["rank"]
+        assert {n: set(p) for n, p in
+                got["models"]["chatglm3-6b"]["plans"].items()} == \
+            {n: set(p) for n, p in
+             want["models"]["chatglm3-6b"]["plans"].items()}

@@ -16,6 +16,19 @@ prefill cell (seq 256, batch 2) at 48 cores beside
 the largest decode cell moves in each package.  The committed reference
 benches were made under an earlier JAX; where their numbers and today's
 reference differ, the HLO changed, not the simulator.
+
+A third table splits each decode cell of ``DECODE_BATCH_GRID`` into op
+groups (``decode_op_table``): the matmuls, the cache-slab ops (every op
+named for a ``dynamic-slice``, ``dynamic-update-slice`` or ``copy``: the
+reference's ``lax.scan`` cuts each layer's slab out of the stacked cache
+and writes it back, where the port's eager step loops over layer views and
+writes its cache in place) and the rest, each with its MB a step, MFLOPs
+and op count in both packages, and the remainder of the byte gap that the
+matmul and cache groups leave, as a share of the reference's bytes.  A
+fourth gives each of those cells' 48-core node-engine estimate (the
+reduced trace, A64FX-node µs, not card times) in both packages, with and
+without its cache-slab ops, and the op counts: what is left of the gap
+without them is the port's eager, unfused ops.
 """
 from __future__ import annotations
 
@@ -27,6 +40,78 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 
 from serving_sweep_torch import FULL_MODELS  # noqa: E402
+
+
+CACHE_OPS = ("dynamic-update-slice", "dynamic-slice", "copy")
+GROUPS = ("matmul", "cache", "other")
+
+
+def op_group(op) -> str:
+    """``matmul`` for the matmul class (dots and the fusions around them),
+    ``cache`` for an op named for a slab slice, update or copy, else
+    ``other``."""
+    if op.opclass == "matmul":
+        return "matmul"
+    if any(k in op.name or k == op.opcode for k in CACHE_OPS):
+        return "cache"
+    return "other"
+
+
+def decode_op_table(arch: str, batch: int) -> dict:
+    """Both packages' decode cell at ``batch`` by op group:
+    ``{"reference"|"port": {group: {"n", "mb", "mflops"}}}``, plus
+    ``"remainder"``, the byte gap (reference less port) that the matmul
+    and cache groups do not explain, over the reference's bytes."""
+    import dataclasses as dc
+
+    from repro.configs.shapes import ZOO_DECODE
+    from repro.core import zoo as ref_zoo
+    from repro_torch.core import zoo as port_zoo
+
+    shape = dc.replace(ZOO_DECODE, name=f"serve_decode_b{batch}",
+                       global_batch=batch)
+    out = {}
+    for side, z in (("reference", ref_zoo), ("port", port_zoo)):
+        t = {g: {"n": 0, "mb": 0.0, "mflops": 0.0} for g in GROUPS}
+        for o in z.trace_phase(arch, "decode", shape).ops:
+            row = t[op_group(o)]
+            row["n"] += 1
+            row["mb"] += o.bytes_accessed * o.count / 1e6
+            row["mflops"] += o.flops * o.count / 1e6
+        out[side] = t
+    r, p = out["reference"], out["port"]
+    total = sum(r[g]["mb"] for g in GROUPS)
+    out["remainder"] = (r["other"]["mb"] - p["other"]["mb"]) / total
+    return out
+
+
+def decode_cell_times(arch: str, batch: int) -> dict:
+    """Both packages' decode cell at ``batch`` on 48 cores of the A64FX
+    node (µs of the reduced trace), in full and without the cache-slab
+    ops: ``{"reference"|"port": {"us", "us_no_slab", "ops"}}``."""
+    import dataclasses as dc
+
+    from repro.configs.shapes import ZOO_DECODE
+    from repro.core import hwspec as ref_hw
+    from repro.core import zoo as ref_zoo
+    from repro_torch.core import hwspec as port_hw
+    from repro_torch.core import zoo as port_zoo
+
+    shape = dc.replace(ZOO_DECODE, name=f"serve_decode_b{batch}",
+                       global_batch=batch)
+    out = {}
+    for side, z, hw in (("reference", ref_zoo, ref_hw.A64FX_CORE),
+                        ("port", port_zoo, port_hw.A64FX_CORE)):
+        prog = z.trace_phase(arch, "decode", shape)
+        bare = dc.replace(prog, ops=[o for o in prog.ops
+                                     if op_group(o) != "cache"])
+
+        def us(p):
+            return z.estimate_program(p, hw, (48,), hw.topology, "shard",
+                                      "f32").at(48).t_est_s * 1e6
+        out[side] = {"us": us(prog), "us_no_slab": us(bare),
+                     "ops": len(prog.ops)}
+    return out
 
 
 def main() -> int:
@@ -78,6 +163,33 @@ def main() -> int:
               f"{cells[0] * 1e6:.1f} / {cells[1] * 1e6:.1f} | "
               f"{old['n_ops']} / {len(progs[0].ops)} / {len(progs[1].ops)} | "
               f"{mb[0]:.1f} / {mb[1]:.1f} |")
+
+    print("\n| model | b | matmul MB, MFLOPs: reference / port | cache-slab "
+          "MB (ops): reference / port | other MB (ops): reference / port "
+          "| remainder of the gap |")
+    print("| --- | --- | --- | --- | --- | --- |")
+    for arch in FULL_MODELS:
+        for b in ref_serving.DECODE_BATCH_GRID:
+            t = decode_op_table(arch, b)
+            r, p = t["reference"], t["port"]
+            print(f"| {arch} | {b} | {r['matmul']['mb']:.3f}, "
+                  f"{r['matmul']['mflops']:.3f} / {p['matmul']['mb']:.3f}, "
+                  f"{p['matmul']['mflops']:.3f} | {r['cache']['mb']:.3f} "
+                  f"({r['cache']['n']}) / {p['cache']['mb']:.3f} "
+                  f"({p['cache']['n']}) | {r['other']['mb']:.3f} "
+                  f"({r['other']['n']}) / {p['other']['mb']:.3f} "
+                  f"({p['other']['n']}) | {t['remainder']:+.4f} |")
+
+    print("\n| model | b | 48-core µs, reference: in full / without the "
+          "slab ops (ops) | port: in full / without them (ops) |")
+    print("| --- | --- | --- | --- |")
+    for arch in FULL_MODELS:
+        for b in ref_serving.DECODE_BATCH_GRID:
+            t = decode_cell_times(arch, b)
+            r, p = t["reference"], t["port"]
+            print(f"| {arch} | {b} | {r['us']:.1f} / {r['us_no_slab']:.1f} "
+                  f"({r['ops']}) | {p['us']:.1f} / {p['us_no_slab']:.1f} "
+                  f"({p['ops']}) |")
     return 0
 
 

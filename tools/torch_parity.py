@@ -562,7 +562,7 @@ def train_step_rows():
             jgrad = jax.jit(jax.grad(   # the reference's: decides amplified
                 lambda p, t: jmodel.loss_fn(p, {"tokens": t})[0]))
             tmodel = build_model(tcfg, ssd_impl=impl)
-            tstep, tinit = make_train_step(tmodel, trun)
+            tstep, *_, tinit = make_train_step(tmodel, trun)
             jp = jax.tree.map(jnp.asarray, tree)
             jo = jinit(jp)
             cp = params_from_jax(tree, tcfg, device="cpu")
