@@ -196,20 +196,41 @@ Phases, in order; any failure exits non-zero and prints no result:
     B/C; K4 also B 1, nc 2) recorded around its launches and the kernel
     held there against its plain version;
 30. meshes (``parallel/``) on a 1x1 ("data", "model") ``DeviceMesh`` over
-    a one-rank NCCL group: mamba2-1.3b at full width, 8 of its 48 layers,
+    a one-rank NCCL group: mamba2-1.3b at full width and all 48 layers,
     trained by ``launch.train.train_loop`` for 3 steps of 4 x 2048 tokens
     without and with the mesh from the same seed and batches (the losses
-    within 1e-6 relative, equal bits expected; K4 48 and K5 24 launches
-    in each; the step's host ms side by side); the no-mesh state written
-    by ``AsyncCheckpointer``, restored onto the mesh by
-    ``restore(shardings=)`` bit for bit and stepped once (a finite loss);
+    within 1e-6 relative, equal bits expected; K4 288 and K5 144 launches
+    in each; the step's host ms side by side); an 8-layer state after one
+    step without the mesh written by ``AsyncCheckpointer``, restored onto
+    the mesh by ``restore(shardings=)`` bit for bit and stepped once (a
+    finite loss);
     chatglm3-6b at full width served by ``ServeEngine`` and
     ``ServeEngine(rules=)``, 2 requests of 128 and 2048 tokens and 16 new
     tokens (the same greedy tokens, K3 56 launches in each); every shape
     the phase launched K3, K4 and K5 at held against the plain versions;
     then ``tools/cluster_scaling_torch.py --quick`` (equal to the
     reference's ``--quick``) and its full run on the host, with the ranks
-    and plan taus against ``BENCH_cluster.json``.
+    and plan taus against ``BENCH_cluster.json``;
+31. ``examples/train_lm_torch.py`` at ``--size 100m`` and the reference
+    example's defaults (300 steps of 8 x 256 tokens, microbatch 4, f32,
+    checkpoints every 25 steps, a failure injected at step 150): one
+    restart, the loss falling by more than 0.5, step ms, tokens/s, a
+    checkpoint's save and restore seconds; the resumed losses from the
+    restored step to the step after the fault equal to an uninterrupted
+    run's (bits, else 1e-5 relative); no hand-written kernel on its path;
+32. ``tools/ssd_kernel_cost_torch.py`` (the plain chunked SSD path's
+    captured bytes and FLOPs against K4's and K5's bounds, as memory and
+    compute terms on ``H100``, at mamba2-1.3b train_4k's per-device shape)
+    beside the card's device time there of K4 + K5, the kernel path's and
+    the plain path's forward + backward; K4 and K5 launched once each by
+    the kernel path and held against their plain versions there;
+33. ``tools/cell_capture_torch.py``: chatglm3-6b's decode_32k cell
+    captured at full width on the fake (16, 16) and (2, 16, 16) production
+    meshes, each in a process of its own (256 and 512 fake ranks), started
+    before phase 31 and run beside phases 31-32 (host work), parsed and
+    simulated: capture and parse seconds, peak resident memory (host
+    numbers), graph nodes, ops, collective bytes by kind and group size,
+    the ops that move the most, t_est on ``H100``.
 
 The models are freed between phases.  After each model's serving phase,
 the profiler's kernel time of one prefill
@@ -220,7 +241,9 @@ before it and reads the counts just after; so does the calibration path
 for K1 and K2, phase 20 for the scan around each case's torch run,
 phases 25, 26 and 28 for the scan around each sweep, phase 27 for K1 and
 K2, phase 29 for K3, K4 and K5 around each model of ``serve_lm``, phase
-30 around each training run, the restored step and each engine.
+30 around each 48-layer training run, the restored step and each engine
+(the one step that makes the restored state goes uncounted), phase 31
+around ``train_lm`` and phase 32 around the kernel path's one run.
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  There is no CPU path: without a CUDA device
 the script exits with 1.
@@ -243,10 +266,10 @@ ARCH = "chatglm3-6b"
 PROMPT_LENS = (128, 512, 1024, 2048)
 NEW_TOKENS = 32
 TIMING_S = 2048
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12         # CUDA-core FMAs (the bounds' f32 variants)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
+# ``repro_torch.kernels.bounds``' PEAK_BF16_FLOPS, PEAK_F32_FLOPS (CUDA-core
+# FMAs, the bounds' f32 variants) and HBM_BYTES_PER_S, set by ``main``
+PEAK_BF16_FLOPS = PEAK_F32_FLOPS = HBM_BYTES_PER_S = None
 KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")  # model paths
 SOURCES = (*KERNELS, "stream", "sched_scan")   # csrc/*.cu, side by side
 KERNEL_FUNCTIONS = {"flash_attention": "flash_fwd_",   # CUDA function names
@@ -1811,6 +1834,7 @@ def serving_on_card(dev, check_kernels) -> dict:
 
 # phase 30: meshes (parallel/), the elastic restore, the cluster CLI
 MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 4, 3
+MESH_RESTORE_LAYERS = 8
 MESH_PROMPT_LENS, MESH_NEW_TOKENS = (128, 2048), 16
 MESH_LOSS_RTOL = 1e-6
 
@@ -1823,10 +1847,13 @@ def meshes_on_card(dev, check_kernels) -> dict:
     and batch a replicated DTensor), from the same seed and batches: the
     losses within 1e-6 relative (equal bits expected: one rank runs the
     same ops on the same tensors), K4 and K5 launched as often, the step's
-    host ms side by side; (c) the no-mesh run's final state written by
-    ``AsyncCheckpointer``, restored through ``restore(shardings=)`` onto
-    the mesh bit for bit (the free space where it is written printed
-    beside its size), and one more step there with a finite loss; (b)
+    host ms side by side; (c) the state of mamba2-1.3b at
+    ``MESH_RESTORE_LAYERS`` (8) layers after one step without a mesh
+    written by ``AsyncCheckpointer``, restored through
+    ``restore(shardings=)`` onto the mesh bit for bit (the free space where
+    it is written printed beside its size), and one more step there with a
+    finite loss (the 48 layers' 12.5 GiB state took ~75 s more, which the
+    script's time limit no longer holds); (b)
     chatglm3-6b at full width served through ``ServeEngine`` and
     ``ServeEngine(rules=)`` on the same mesh, 2 requests of 128 and 2048
     tokens and 16 new tokens: the same greedy tokens, K3 launched 28 times
@@ -1922,9 +1949,17 @@ def meshes_on_card(dev, check_kernels) -> dict:
                 "median_step_host_ms": steady,
                 "launches_no_mesh": k_plain, "launches_mesh": k_mesh}
 
-            # (c) the elastic restore of the no-mesh state onto the mesh --
-            state = plain.state
-            del runs, meshed
+            # (c) the elastic restore of a no-mesh state onto the mesh, at
+            # MESH_RESTORE_LAYERS layers: 2.9 GiB where the 48 layers'
+            # 12.5 GiB took ~75 s to snapshot, write and read back
+            del runs, meshed, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(cfg, n_layers=MESH_RESTORE_LAYERS)
+            run = dataclasses.replace(run, model=cfg)
+            model = build_model(cfg, ssd_impl="kernel")
+            state = train_loop(model, run, n_steps=1, seed=0, log_every=1,
+                               device=dev).state
             with tempfile.TemporaryDirectory() as tmp:
                 free = shutil.disk_usage(tmp).free
                 t0 = time.perf_counter()
@@ -2061,6 +2096,346 @@ def meshes_on_card(dev, check_kernels) -> dict:
     return out
 
 
+# phase 31: examples/train_lm_torch.py at --size 100m
+TRAIN_LM_LOSS_RTOL = 1e-5
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_lm_on_card(dev) -> dict:
+    """Phase 31, ``examples/train_lm_torch.py`` at ``--size 100m`` and the
+    reference example's defaults (300 steps of 8 x 256 tokens, microbatch
+    4, lr 6e-4, f32 parameters and compute, checkpoints every 25 steps, a
+    failure injected at step 150): one restart, the loss falling by more
+    than 0.5 (the example's own check), step ms, tokens/s and one
+    checkpoint's save and restore seconds; then the same model trained
+    without checkpoints or a failure for 152 steps from the same seed: the
+    resumed run's losses from the restored step to the step after the
+    fault equal it, bit for bit if the card's run is deterministic, else
+    within 1e-5 relative (the step's f32 reductions in another order).
+    The dense model's path launches none of the hand-written kernels
+    (attention ``blocked``: K3 has no backward), which is checked."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.train import train_loop
+
+    def counts():
+        return {"flash_attention": fa.flash_attention_bhsd.launches,
+                "ssd_scan": ssd.ssd_chunk.launches,
+                "ssd_scan_bwd": ssd.ssd_chunk_bwd.launches}
+
+    t_phase = time.perf_counter()
+    ex = load_example("train_lm_torch")
+    fa.flash_attention_bhsd.launches = ssd.ssd_chunk.launches = 0
+    ssd.ssd_chunk_bwd.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ex.parse_args(["--size", "100m", "--ckpt-dir",
+                              str(Path(tmp) / "ckpt")])
+        rep, stats = ex.run(args)
+    launches = counts()
+    torch.cuda.synchronize()
+    at = ex.fault_step(args)
+    restored = (at // ex.CKPT_EVERY) * ex.CKPT_EVERY
+    model, run_cfg = ex.build(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clean = train_loop(model, run_cfg, n_steps=at + 2, seed=0,
+                       log_every=ex.LOG_EVERY, device=dev)
+    view = profile_train_step(dev, model, run_cfg, clean.state, at + 2)
+    resumed = rep.losses[at:at + at + 2 - restored]
+    want = clean.losses[restored:at + 2]
+    equal_bits = (resumed == want and rep.losses[:at] == clean.losses[:at])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        rep.losses[:at] + resumed, clean.losses[:at] + want))
+    fell = stats["loss_last10"] < stats["loss_first10"] - ex.LOSS_DROP
+    print(f"[train_lm] {run_cfg.model.name} "
+          f"({run_cfg.model.param_count() / 1e6:.1f} M parameters, f32), "
+          f"{args.steps} steps of {args.batch} x {args.seq} in microbatches "
+          f"of {args.microbatch}, fault at step {at}: restarts "
+          f"{rep.restarts}, restored at step {restored}; wall "
+          f"{stats['wall_s']:.1f} s, {stats['tokens_per_s']:.0f} tokens/s, "
+          f"median step {stats['median_step_ms']:.2f} ms (host clock); loss "
+          f"{stats['loss_first10']:.4f} -> {stats['loss_last10']:.4f} (the "
+          f"means of the first and last 10); a checkpoint of the final state "
+          f"saved in {stats['ckpt_save_s']:.2f} s, restored in "
+          f"{stats['ckpt_restore_s']:.2f} s; resumed losses at steps "
+          f"{restored}-{at + 1} {resumed} against the uninterrupted run's "
+          f"{want}: equal bits {equal_bits}, max rel {rel:.3e}; launches "
+          f"{launches}")
+    if rep.restarts != 1 or not fell:
+        fail(f"train_lm: restarts {rep.restarts}, loss "
+             f"{stats['loss_first10']} -> {stats['loss_last10']}")
+    if not equal_bits and rel > TRAIN_LM_LOSS_RTOL:
+        fail(f"train_lm: the resumed losses {resumed} differ from the "
+             f"uninterrupted run's {want} by {rel:.3e}")
+    if any(launches.values()):
+        fail(f"train_lm launched {launches}; its path launches none")
+    print(f"[train_lm] one more step (step {at + 2}) on the host clock "
+          f"{view['host_ms']:.2f} ms; under the profiler {view['kernels']} "
+          f"kernels, {view['kernel_ms']:.2f} ms of kernel time (cuBLAS "
+          f"{view['cublas_ms']:.2f} ms), the device idle "
+          f"{view['idle']:.1%}; the kernels that take most: " + ", ".join(
+              f"{k[:60]} {v:.2f} ms" for k, v in view["top"].items()))
+    del model, clean, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[train_lm] phase 31: {seconds:.1f} s")
+    return {"model": run_cfg.model.name,
+            "params": run_cfg.model.param_count(), "steps": args.steps,
+            "batch": args.batch, "seq": args.seq,
+            "microbatch": args.microbatch, "fault_step": at,
+            "restored_step": restored, "restarts": 1, **stats,
+            "resumed_losses": resumed, "uninterrupted_losses": want,
+            "equal_bits": equal_bits, "max_rel_loss_diff": rel,
+            "profiled_step": view, "launches": launches, "seconds": seconds}
+
+
+def profile_train_step(dev, model, run_cfg, state, step: int) -> dict:
+    """One training step of ``state`` on synthetic batch ``step``: its host
+    ms unprofiled, then under the profiler its kernels, kernel ms (cuBLAS
+    apart), the device's idle share and the five kernels that take most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch.train import build_training
+
+    step_fn = build_training(model, run_cfg, dev)[0]
+    shape = run_cfg.shape
+    batch = {"tokens": torch.from_numpy(SyntheticLMDataset(
+        run_cfg.model.vocab_size, shape.seq_len, shape.global_batch,
+        seed=0).batch(step)["tokens"]).to(dev, torch.long)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(*state, batch)
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(*state, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total
+    busy = sum(by_name.values()) / 1e3
+    cublas = sum(v for k, v in by_name.items()
+                 if any(c in k.lower() for c in CUBLAS_FUNCTIONS)) / 1e3
+    top = dict(sorted(((k, v / 1e3) for k, v in by_name.items()),
+                      key=lambda kv: -kv[1])[:5])
+    return {"host_ms": host * 1e3, "kernels": len(kern), "kernel_ms": busy,
+            "cublas_ms": cublas, "idle": max(0.0, 1 - busy / (host * 1e3)),
+            "top": top}
+
+
+# phase 32: the SSD kernel-cost bench's rows beside the card's times
+def ssd_cost_on_card(dev, check_kernels) -> dict:
+    """Phase 32, ``tools/ssd_kernel_cost_torch.py`` (the plain chunked
+    path's captured bytes and FLOPs against K4's and K5's bounds, as
+    memory and compute terms on the ``H100`` spec) and, at its shape, the
+    card's device time (each call behind a spin, as in phase 10) of K4 +
+    K5 and of the plain chunked forward + backward (``ssd_chunked`` and
+    ``torch.autograd.grad``), with the kernel path's forward + backward
+    (``ops.ssd_scan``: K4, K5 and the recurrence) beside them.  The kernel
+    path runs once with the counts at 0 first (K4 and K5 once each), and
+    K4 and K5 are held against their plain versions at the shapes it
+    launched them with (``check_kernels``)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.bounds import (ssd_chunk_bwd_bound,
+                                            ssd_chunk_fwd_bound)
+    from repro_torch.models.ssm import ssd_chunked
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ssd_kernel_cost.json"
+        run_tool("ssd_kernel_cost_torch.py", "--out", str(path))
+        rows = json.loads(path.read_text())
+    sh = rows["shape"]
+    B, L, H, P, N, Q = (sh[k] for k in ("B", "S", "H", "P", "N", "chunk"))
+    nc = L // Q
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(B, L, H, P).bfloat16()
+    dt = torch.nn.functional.softplus(randn(B, L, H)).bfloat16()
+    A = -torch.exp(0.5 * randn(H))
+    Bg, Cg = ((0.5 * randn(B, L, 1, N)).bfloat16() for _ in range(2))
+    Bh, Ch = (t.expand(B, L, H, N) for t in (Bg, Cg))
+
+    def kernel_path():
+        xl, dtl = (t.detach().requires_grad_(True) for t in (x, dt))
+        y, st = kops.ssd_scan(xl, dtl, A, Bh, Ch, Q)
+        return torch.autograd.grad(y.float().sum() + st.float().sum(),
+                                   (xl, dtl))
+
+    def plain_path():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, dt.float(), A, Bg, Cg)]
+        y, st = ssd_chunked(*leaves, Q)
+        return torch.autograd.grad(y.float().sum() + st.float().sum(),
+                                   leaves)
+
+    shapes = {name: set() for name in KERNELS}
+    with recording_shapes(shapes):
+        ssd.ssd_chunk.launches = ssd.ssd_chunk_bwd.launches = 0
+        kernel_path()
+        torch.cuda.synchronize()
+        launches = {"ssd_scan": ssd.ssd_chunk.launches,
+                    "ssd_scan_bwd": ssd.ssd_chunk_bwd.launches}
+    if launches != {"ssd_scan": 1, "ssd_scan_bwd": 1}:
+        fail(f"phase 32: the kernel path launched {launches}")
+    checks = check_kernels(shapes)
+
+    args = [t.reshape(B, nc, Q, *t.shape[2:]) for t in (x, dt)] + [A] + [
+        t.reshape(B, nc, Q, *t.shape[2:]) for t in (Bh, Ch)]
+    dy = randn(B, nc, Q, H, P).bfloat16()
+    dstates, dgamma = randn(B, nc, H, N, P), randn(B, nc, H)
+    k4_ms = device_ms(lambda: ssd.ssd_chunk(*args), 30)
+    k5_ms = device_ms(lambda: ssd.ssd_chunk_bwd(*args, dy, dstates, dgamma),
+                      30)
+    kernel_path_ms = device_ms(kernel_path, 10)
+    plain_ms = device_ms(plain_path, 10)
+    k4 = ssd_chunk_fwd_bound(B, L, H, P, N, Q)
+    k5 = ssd_chunk_bwd_bound(B, L, H, P, N, Q)
+    scale = sh["layers"] * sh["microbatches"]
+    plain, ker = rows["plain_chunked"], rows["kernels"]
+    print(f"[ssd_cost] B={B} S={L} H={H} P={P} N={N} chunk {Q} (mamba2-1.3b "
+          f"train_4k's per-device shape), per layer and microbatch; "
+          f"modelled on {rows['spec']['name']} (bytes over "
+          f"{rows['spec']['hbm_read_bw'] / 1e12:g} TB/s, FLOPs over "
+          f"{rows['spec']['peak_bf16'] / 1e12:g} TFLOP/s): plain chunked "
+          f"{plain['bytes'] / 2**20:.2f} MiB, {plain['flops'] / 1e9:.3f} GF "
+          f"(dots {plain['dot_flops'] / 1e9:.3f} GF): memory "
+          f"{plain['memory_term_s'] / scale * 1e3:.4f} ms, compute "
+          f"{plain['compute_term_s'] / scale * 1e3:.4f} ms; kernels K4 "
+          f"{ker['k4']['bytes'] / 2**20:.2f} MiB + K5 "
+          f"{ker['k5']['bytes'] / 2**20:.2f} MiB + outside them "
+          f"{ker['outside_kernels']['bytes'] / 2**20:.2f} MiB = "
+          f"{ker['bytes'] / 2**20:.2f} MiB, {ker['flops'] / 1e9:.3f} GF: "
+          f"memory {ker['memory_term_s'] / scale * 1e3:.4f} ms, compute "
+          f"{ker['compute_term_s'] / scale * 1e3:.4f} ms; HBM traffic cut "
+          f"{rows['hbm_traffic_cut']:.1%}; the step's ({sh['layers']} "
+          f"layers x {sh['microbatches']} microbatches) memory terms "
+          f"{plain['memory_term_s']:.4f} s and {ker['memory_term_s']:.4f} s")
+    print(f"[ssd_cost] on the card (device time, behind a spin): K4 "
+          f"{k4_ms:.4f} ms (bound {k4.bound_ms:.4f}, {k4.bound_by}) + K5 "
+          f"{k5_ms:.4f} ms (bound {k5.bound_ms:.4f}, {k5.bound_by}) = "
+          f"{k4_ms + k5_ms:.4f} ms; the kernel path's forward + backward "
+          f"{kernel_path_ms:.4f} ms; the plain chunked forward + backward "
+          f"{plain_ms:.4f} ms ({plain_ms / (k4_ms + k5_ms):.2f}x K4 + K5, "
+          f"{plain_ms / kernel_path_ms:.2f}x the kernel path); x "
+          f"{scale} a step: K4 + K5 {(k4_ms + k5_ms) * scale / 1e3:.3f} s, "
+          f"plain {plain_ms * scale / 1e3:.3f} s; launches {launches}; "
+          f"against the plain versions {checks}")
+    del x, dt, A, Bg, Cg, Bh, Ch, args, dy, dstates, dgamma
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[ssd_cost] phase 32: {seconds:.1f} s")
+    return {"modelled": rows, "k4_ms": k4_ms, "k5_ms": k5_ms,
+            "k4_bound_ms": k4.bound_ms, "k5_bound_ms": k5.bound_ms,
+            "kernel_path_ms": kernel_path_ms, "plain_ms": plain_ms,
+            "launches": launches, "kernel_checks": checks,
+            "seconds": seconds}
+
+
+# phase 33: one full-width cell on the fake production meshes
+CELL_ARCH, CELL_SHAPE = "chatglm3-6b", "decode_32k"
+CELL_MESHES = (("16x16", ()), ("2x16x16", ("--multi-pod",)))
+CELL_TIMEOUT_S = 600
+
+
+def start_cell_captures(tmp: Path) -> dict:
+    """Phase 33's two processes, started side by side (host work: they run
+    while phases 31 and 32 use the card): ``tools/cell_capture_torch.py``
+    for each production mesh, writing under ``tmp``."""
+    import os
+    procs = {}
+    for name, flag in CELL_MESHES:
+        log = open(tmp / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "tools" / "cell_capture_torch.py"),
+             "--arch", CELL_ARCH, "--shape", CELL_SHAPE, *flag, "--out",
+             str(tmp / f"{name}.json")], stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}), log,
+            time.perf_counter())
+    return procs
+
+
+def cell_on_production_meshes(tmp: Path, procs: dict) -> dict:
+    """Phase 33, ``tools/cell_capture_torch.py``: ``build_cell(CELL_ARCH,
+    CELL_SHAPE, make_production_mesh()).capture()`` at full width on the
+    (16, 16) and the (2, 16, 16) mesh, each in a process of its own over a
+    fake process group of 256 or 512 ranks (apart from phase 30's real
+    one; ``start_cell_captures`` started them), parsed and simulated on
+    ``H100``: the capture's and parse's seconds and the process's peak
+    resident memory (host numbers of the card's machine, not card times),
+    graph nodes, ops, collective bytes by kind and group size, the bytes by
+    opcode and the ops that move the most, and the simulated step time."""
+    out = {}
+    for name, (proc, log, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, CELL_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the time limit"
+        log.close()
+        if rc != 0:
+            fail(f"phase 33: cell_capture_torch.py on {name} exited {rc}: "
+                 f"{(tmp / f'{name}.log').read_text()[-2000:]}")
+        r = json.loads((tmp / f"{name}.json").read_text())
+        out[name] = r
+        print(f"[cell] {r['cell']} at full width on the fake {name} mesh "
+              f"({r['n_chips']} ranks; host numbers, the process beside "
+              f"phases 31-32): the run {r['wall_s']:.2f} s, of it mesh "
+              f"{r['mesh_s']:.2f} s, capture "
+              f"{r['capture_s']:.2f} s, parse {r['parse_s']:.2f} s, simulate "
+              f"{r['simulate_s']:.2f} s, peak RSS "
+              f"{r['peak_rss_bytes'] / 2**30:.2f} GiB; {r['graph_nodes']} "
+              f"graph nodes, {r['ops']} ops, {r['flops'] / 1e9:.3f} GFLOP "
+              f"and {r['bytes'] / 2**30:.3f} GiB a rank, collectives "
+              + ", ".join(f"{k}: {v['count']} ops {v['bytes'] / 2**20:.2f} "
+                          f"MiB" for k, v in r["collectives"].items())
+              + f"; t_est on {r['spec']} {r['t_est_s'] * 1e3:.3f} ms "
+              f"(compute {r['roofline']['compute_s'] * 1e3:.3f}, memory "
+              f"{r['roofline']['memory_s'] * 1e3:.3f}, collective "
+              f"{r['roofline']['collective_s'] * 1e3:.3f} ms); GiB by opcode "
+              + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in sorted(
+                  r["bytes_by_opcode"].items(), key=lambda kv: -kv[1])[:6])
+              + "; the ops that move the most: " + ", ".join(
+                  f"{o['name']} ({o['opcode']}, {o['dtype']}) "
+                  f"{o['bytes'] / 2**20:.1f} MiB" for o in r["top_ops"][:5]))
+        if not (r["ops"] > 0 and r["collectives"] and r["t_est_s"] > 0):
+            fail(f"phase 33: the {name} capture holds {r['ops']} ops "
+                 f"and collectives {r['collectives']}")
+    print("[cell] phase 33: " + ", ".join(
+        f"{n} {r['wall_s']:.1f} s" for n, r in out.items())
+        + " (processes beside phases 31-32)")
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2069,6 +2444,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
+
+    global PEAK_BF16_FLOPS, PEAK_F32_FLOPS, HBM_BYTES_PER_S
+    from repro_torch.kernels import bounds
+    from repro_torch.kernels.bounds import (ssd_chunk_bwd_bound,
+                                            ssd_chunk_fwd_bound)
+    PEAK_BF16_FLOPS = bounds.PEAK_BF16_FLOPS
+    PEAK_F32_FLOPS = bounds.PEAK_F32_FLOPS
+    HBM_BYTES_PER_S = bounds.HBM_BYTES_PER_S
 
     from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
     from repro_torch.data.synthetic import SyntheticLMDataset
@@ -2764,36 +3147,20 @@ def main() -> int:
         shape = f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C broadcast"
         k4_ms = device_ms(lambda: ssd.ssd_chunk(*args), 30)
         k4_plain_ms = device_ms(lambda: ssd.ssd_chunk_plain(*args), 3)
-        cells = B * nc * H
-        # C_i.B_j does not depend on the head: once per (batch, chunk,
-        # group), bf16 x bf16 products, exact on the tensor cores; M.X and
-        # the state B^T (w X) per head take an f32 operand (M, w X), which
-        # the tensor cores take as two bf16 terms (hi, lo), so that work
-        # counts twice.  The bound of K4's first design (those products as
-        # f32 FMAs on the CUDA cores) is printed beside it.
-        flops_cb = B * nc * sc.n_groups * 2 * pairs * N
-        flops_f32 = cells * (2 * pairs * P + 2 * Q * N * P)
-        nbytes = (2 * 2 * B * L * H * P              # x read, y_diag written
-                  + 2 * B * L * H                    # dt
-                  + 2 * 2 * B * L * N                # B, C: one group
-                  + 4 * H                            # A
-                  + 4 * cells * N * P + 4 * cells)   # states, gamma (f32)
-        ops_s = (flops_cb + 2 * flops_f32) / PEAK_BF16_FLOPS
-        bytes_s = nbytes / HBM_BYTES_PER_S
-        cuda_core_s = max(flops_cb / PEAK_BF16_FLOPS,
-                          flops_f32 / PEAK_F32_FLOPS)
-        bound_ms = max(ops_s, bytes_s) * 1e3
-        bound_by = "operations" if ops_s >= bytes_s else "bytes"
+        # the bound: kernels/bounds.py (C.B^T once per group, M.X and the
+        # state's f32 operands as hi and lo bf16 halves)
+        bd = ssd_chunk_fwd_bound(B, L, H, P, N, Q, sc.n_groups)
+        bound_ms, bound_by = bd.bound_ms, bd.bound_by
         print(f"[time] K4 {label}, {shape} (device time, behind a spin): "
               f"kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by}: tensor cores "
-              f"{ops_s * 1e3:.4f} ms (C.B^T {flops_cb / 1e9:.4f} GFLOP, "
-              f"M.X and the state {flops_f32 / 1e9:.3f} GFLOP twice, hi and "
-              f"lo, over {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16), bytes "
-              f"{bytes_s * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB over "
-              f"{HBM_BYTES_PER_S / 1e12:g} TB/s); the bound with M.X and the "
-              f"state as f32 FMAs on the CUDA cores "
-              f"{cuda_core_s * 1e3:.4f} ms; kernel at "
+              f"{bd.ops_s * 1e3:.4f} ms (C.B^T {bd.flops_cb / 1e9:.4f} "
+              f"GFLOP, M.X and the state {bd.flops_f32 / 1e9:.3f} GFLOP "
+              f"twice, hi and lo, over {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s "
+              f"bf16), bytes {bd.bytes_s * 1e3:.4f} ms ({bd.bytes / 1e6:.2f} "
+              f"MB over {HBM_BYTES_PER_S / 1e12:g} TB/s); the bound with M.X "
+              f"and the state as f32 FMAs on the CUDA cores "
+              f"{bd.cuda_core_s * 1e3:.4f} ms; kernel at "
               f"{bound_ms / k4_ms:.1%} of the bound, "
               f"{k4_plain_ms / k4_ms:.2f}x faster than plain; no single "
               f"PyTorch call computes this function")
@@ -2947,41 +3314,23 @@ def main() -> int:
     torch.cuda.synchronize()
     k5_plain_ms = device_ms(
         lambda: ssd.ssd_chunk_bwd_plain(*args, dy, dstates, dgamma), 3)
-    cells = B * nc * H
-    # exact bf16 x bf16 products: C B^T once per group and dM = dy x^T per
-    # head (dy is rounded to x's dtype); products with an f32 operand (M, V
-    # or dS) per head, over the causal pairs: M^T dy, V B, V^T C; and B dS,
-    # (w x) dS^T.  On the tensor cores each f32 operand is two bf16 terms
-    # (hi, lo), so that work counts twice; the CUDA-core bound (f32 FMAs at
-    # 67 TFLOP/s) is printed beside it.
-    k5_flops_cb = B * nc * sc.n_groups * 2 * pairs * N + cells * 2 * pairs * P
-    k5_flops_f32 = cells * (2 * pairs * (P + 2 * N) + 2 * 2 * Q * N * P)
-    k5_bytes = (3 * 2 * B * L * H * P             # x, dy read, dx written
-                + 2 * B * L * H + 4 * B * L * H   # dt read, ddt written
-                + 2 * 2 * B * L * N               # B, C: one group
-                + 4 * H                           # A
-                + 4 * cells * N * P + 4 * cells   # dS, dgamma
-                + 2 * 4 * B * L * H * N           # dB, dC per head, f32
-                + 4 * cells)                      # da
-    k5_ops_s = (k5_flops_cb + 2 * k5_flops_f32) / PEAK_BF16_FLOPS
-    k5_bytes_s = k5_bytes / HBM_BYTES_PER_S
-    k5_cuda_core_s = max(k5_flops_cb / PEAK_BF16_FLOPS,
-                         k5_flops_f32 / PEAK_F32_FLOPS)
-    k5_bound_ms = max(k5_ops_s, k5_bytes_s) * 1e3
+    # the bound: kernels/bounds.py
+    k5_bound = ssd_chunk_bwd_bound(B, L, H, P, N, Q, sc.n_groups)
+    k5_bound_ms = k5_bound.bound_ms
     print(f"[time] K5 B={B} nc={nc} Q={Q} H={H} P={P} N={N} bf16, B/C "
           f"broadcast (device time, behind a spin): kernel {k5_ms:.4f} ms, "
           f"plain {k5_plain_ms:.4f} ms, bound {k5_bound_ms:.4f} ms by "
-          f"{'operations' if k5_ops_s >= k5_bytes_s else 'bytes'}: tensor "
-          f"cores {k5_ops_s * 1e3:.4f} ms (C.B^T and dM "
-          f"{k5_flops_cb / 1e9:.3f} GFLOP, the f32-operand products "
-          f"{k5_flops_f32 / 1e9:.3f} GFLOP twice, hi and lo, over "
+          f"{k5_bound.bound_by}: tensor cores "
+          f"{k5_bound.ops_s * 1e3:.4f} ms (C.B^T and dM "
+          f"{k5_bound.flops_cb / 1e9:.3f} GFLOP, the f32-operand products "
+          f"{k5_bound.flops_f32 / 1e9:.3f} GFLOP twice, hi and lo, over "
           f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16), bytes "
-          f"{k5_bytes_s * 1e3:.4f} ms ({k5_bytes / 1e6:.2f} MB over "
-          f"{HBM_BYTES_PER_S / 1e12:g} TB/s; dB and dC "
+          f"{k5_bound.bytes_s * 1e3:.4f} ms ({k5_bound.bytes / 1e6:.2f} MB "
+          f"over {HBM_BYTES_PER_S / 1e12:g} TB/s; dB and dC "
           f"{2 * 4 * B * L * H * N / 1e6:.1f} MB of it); the bound with "
           f"the f32-operand products as f32 FMAs on the CUDA cores "
-          f"{k5_cuda_core_s * 1e3:.4f} ms; the wrapper's host time to queue "
-          f"one call {k5_host_ms:.4f} ms (hidden by the spin); kernel at "
+          f"{k5_bound.cuda_core_s * 1e3:.4f} ms; the wrapper's host time to "
+          f"queue one call {k5_host_ms:.4f} ms (hidden by the spin); kernel at "
           f"{k5_bound_ms / k5_ms:.1%} of the bound, "
           f"{k5_plain_ms / k5_ms:.2f}x faster than plain; no single PyTorch "
           f"call computes this function")
@@ -3355,6 +3704,22 @@ def main() -> int:
     # 30. meshes, the elastic restore, the cluster CLI -----------------------
     mesh_phase = meshes_on_card(dev, check_at)
 
+    # 31.-33. train_lm, the SSD kernel-cost bench, a full-width cell; the
+    # cell's captures are host work, in processes beside phases 31-32 -----
+    import tempfile
+    with tempfile.TemporaryDirectory() as cell_tmp:
+        procs = start_cell_captures(Path(cell_tmp))
+        try:
+            train_lm_phase = train_lm_on_card(dev)
+            ssd_cost_phase = ssd_cost_on_card(dev, check_at)
+            cell_phase = cell_on_production_meshes(Path(cell_tmp), procs)
+        finally:
+            for proc, log, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+
     if failures:
         fail("; ".join(failures))
     scan_row = next(r for r in node_phase["kernel_vs_plain"]
@@ -3373,12 +3738,18 @@ def main() -> int:
     print(json.dumps({"dse": dse_phase}))
     print(json.dumps({"serving_simulator": serving_phase}))
     print(json.dumps({"meshes": mesh_phase}))
+    print(json.dumps({"train_lm": train_lm_phase}))
+    print(json.dumps({"ssd_kernel_cost": ssd_cost_phase}))
+    print(json.dumps({"cell_capture": cell_phase}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in
                    servings + trainings + family_servings + [int8_record]}
                for k in KERNELS}
     for k in KERNELS:
         by_path[k]["serve_lm example"] = serving_phase["launches"][k]
         by_path[k]["phase 30 (mesh)"] = mesh_phase["launches"][k]
+        by_path[k]["phase 31 (train_lm)"] = train_lm_phase["launches"][k]
+    for k, v in ssd_cost_phase["launches"].items():
+        by_path[k]["phase 32 (ssd_kernel_cost)"] = v
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3420,7 +3791,7 @@ def main() -> int:
         "share_of_tolerance": bwd_used,
         "ms": k5_ms, "kernel_ms": k5_ms, "plain_ms": k5_plain_ms,
         "bound_ms": k5_bound_ms,
-        "bound_by": "operations" if k5_ops_s >= k5_bytes_s else "bytes",
+        "bound_by": k5_bound.bound_by,
         "timing": "device time: the median of calls each behind a "
                   "device-side spin",
         "library_ms": None,

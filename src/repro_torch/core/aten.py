@@ -70,6 +70,20 @@ under DESIGN.md §9's rules restated for eager ATen:
 * **The kernels' custom ops** are ``OpStat(opcode="custom-call",
   opclass="data")`` with their operand and output bytes and no FLOPs,
   exactly as the reference's parser costs a Pallas custom-call.
+* **Collectives.**  A DTensor redistribute or a functional collective
+  traces to ``_c10d_functional`` ops: ``all_gather_into_tensor`` ->
+  ``all-gather``, ``reduce_scatter_tensor`` -> ``reduce-scatter``,
+  ``all_reduce`` -> ``all-reduce``, ``all_to_all_single`` -> ``all-to-all``
+  and ``broadcast`` -> ``all-gather`` (``hlo.COLLECTIVES`` maps
+  ``collective-broadcast`` so).  Each is ``opclass="collective"`` with
+  ``comm_bytes`` its operand's bytes at its dtype and ``group_size`` its
+  process group's size, as ``hlo`` charges the HLO collectives.
+  ``capture`` records each group's size in the node's ``meta`` while the
+  group exists (``all_reduce`` names only its group), so ``parse_graph``
+  needs no live group.  ``wait_tensor`` is free, like ``all-gather-done``:
+  its readers depend on the collective.  Any other ``_c10d_functional`` op
+  raises.  A gather on a dim other than 0 arrives as a gather on dim 0,
+  ``split_with_sizes`` (a view) and a ``cat`` (a kernel, charged).
 * **Dtypes are real** (``bf16``, ``f32``, ``s64``, ``pred``, ...) and the
   program says so (``Program.exact_dtypes``): the cost model does not
   de-normalize its f32 ops to ``compute_dtype`` (DESIGN.md §7), because
@@ -96,10 +110,11 @@ DTYPE_NAMES = {
 
 # ops that only re-describe memory: no kernel, no bytes
 VIEWS = {"view", "_unsafe_view", "permute", "t", "transpose", "expand",
-         "unsqueeze", "squeeze", "select", "slice", "alias", "detach"}
+         "unsqueeze", "squeeze", "select", "slice", "alias", "detach",
+         "split_with_sizes", "as_strided"}
 # allocations: no kernel, no bytes (on CUDA the decompositions leave some
 # that nothing reads)
-ALLOCS = {"empty"}
+ALLOCS = {"empty", "empty_strided"}
 
 # ATen op (overload packet name) -> HLO opcode
 OPCODES = {
@@ -120,7 +135,8 @@ OPCODES = {
     "rsqrt": "rsqrt", "div": "divide", "reciprocal": "divide",
     # reduce
     "sum": "reduce", "mean": "reduce", "amax": "reduce",
-    "argmax": "reduce", "argmin": "reduce", "cumsum": "reduce-window",
+    "argmax": "reduce", "argmin": "reduce", "max": "reduce", "min": "reduce",
+    "cumsum": "reduce-window",
     # data movement
     "embedding": "gather", "index": "gather", "index_select": "gather",
     "gather": "gather", "scatter": "scatter", "scatter_add": "scatter",
@@ -132,10 +148,24 @@ OPCODES = {
     "index_add": "scatter", "repeat_interleave": "gather", "any": "reduce",
     "round": "round-nearest-even",
 }
+# _c10d_functional ops (overload packet name) -> HLO collective opcode
+COLLECTIVE_OPS = {
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "all-gather",
+}
+COLLECTIVE_NAMESPACE = "_c10d_functional"
+# the wait on a collective's result: free, its readers depend on the
+# collective
+WAITS = {"wait_tensor"}
 # reduces that carry an index beside each value: XLA lowers them to one
 # variadic reduce over the values and an iota, which the reference's parser
-# charges an element of each operand
+# charges an element of each operand (``max.dim``/``min.dim`` return both,
+# as DTensor's argmax computes it)
 ARG_REDUCES = {"argmax", "argmin"}
+VALUE_INDEX_REDUCES = {"max", "min"}
 # in-place writes into a buffer (I-3): the region is read and written
 REGION_WRITES = {"copy_", "index_copy_", "index_put_", "scatter_",
                  "index_add_"}
@@ -177,8 +207,32 @@ def capture(fn: Callable, *args) -> torch.fx.GraphModule:
     """``fn(*args)`` as one ATen graph, traced over fake tensors: no kernel
     runs and no tensor of the step is allocated.  ``args`` may be real
     tensors or fake ones (made under a ``FakeTensorMode``), in pytrees."""
-    return make_fx(fn, tracing_mode="fake",
-                   decomposition_table=decompositions())(*args)
+    gm = make_fx(fn, tracing_mode="fake",
+                 decomposition_table=decompositions())(*args)
+    record_group_sizes(gm)
+    return gm
+
+
+def _is_collective(target) -> bool:
+    return (isinstance(target, torch._ops.OpOverload)
+            and target.namespace == COLLECTIVE_NAMESPACE)
+
+
+def record_group_sizes(gm: torch.fx.GraphModule) -> None:
+    """Each collective node's process-group size in ``node.meta
+    ["group_size"]``, resolved from its ``group_name`` while the group
+    exists."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    for node in gm.graph.nodes:
+        if node.op != "call_function" or not _is_collective(node.target) \
+                or _packet(node.target) not in COLLECTIVE_OPS:
+            continue
+        names = [a.name for a in node.target._schema.arguments]
+        i = names.index("group_name")
+        group = node.kwargs.get("group_name",
+                                node.args[i] if i < len(node.args) else None)
+        node.meta["group_size"] = _resolve_process_group(group).size()
 
 
 # ------------------------------------------------------------------ parsing
@@ -247,15 +301,16 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
             continue
         target = node.target
         val = node.meta.get("val")
-        if target is operator.getitem:       # one output of an op
-            root[node.name] = node.name
-            writers[node.name] = writers[node.args[0].name]
+        if target is operator.getitem:       # one output of an op or view
+            src = node.args[0].name
+            root[node.name] = root.get(src, src)
             continue
         if not isinstance(target, torch._ops.OpOverload):
             raise NotImplementedError(
                 f"core.aten: no lowering rule for {target!r} ({node.name})")
         name = _packet(target)
-        if name in VIEWS:
+        collective = _is_collective(target)
+        if name in VIEWS or (collective and name in WAITS):
             base = node.args[0]
             root[node.name] = root.get(base.name, base.name)
             continue
@@ -283,13 +338,31 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
         dtype = _dtype(outs[0])
         deps, dep_b = operand_edges(tensor_args)
         inplace = name in REGION_WRITES
+        # an elementwise op in place (``add_``, the accumulation of the
+        # microbatches' gradients): charged as its out-of-place op, and
+        # later readers of operand 0's buffer depend on it
+        ew_inplace = (not inplace and name.endswith("_")
+                      and name[:-1] in OPCODES
+                      and _classify(OPCODES[name[:-1]]) == "elementwise")
 
-        if target.namespace == "repro_torch":
+        if collective:
+            if name not in COLLECTIVE_OPS:
+                raise NotImplementedError(
+                    f"core.aten: no lowering rule for {target} ({node.name})")
+            if "group_size" not in node.meta:
+                raise NotImplementedError(
+                    f"core.aten: {target} ({node.name}) has no group size; "
+                    "capture it with core.aten.capture while its process "
+                    "group exists")
+            opcode, cls = COLLECTIVE_OPS[name], "collective"
+        elif target.namespace == "repro_torch":
             opcode, cls = "custom-call", "data"
         elif name in COMPOSITES:
             opcode, cls = "fusion", "elementwise"
         elif inplace:
             opcode, cls = ("copy" if name == "copy_" else "scatter"), "data"
+        elif ew_inplace:
+            opcode, cls = OPCODES[name[:-1]], "elementwise"
         elif name in OPCODES:
             opcode = OPCODES[name]
             cls = _classify(opcode)
@@ -333,13 +406,18 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
         elif cls == "elementwise":
             stat.flops = nelems
             stat.vpu_by_opcode = {opcode: nelems}
-        elif name in ARG_REDUCES:      # a (value, index) pair an element
+        elif name in ARG_REDUCES or (name in VALUE_INDEX_REDUCES
+                                     and len(outs) == 2):
+            # a (value, index) pair an element
             stat.flops = 2.0 * max(1, tensor_args[0][1].numel())
         elif cls == "reduce":
             stat.flops = float(max(1, tensor_args[0][1].numel()))
+        elif cls == "collective":         # the operand, as hlo charges it
+            stat.comm_bytes = in_b
+            stat.group_size = int(node.meta["group_size"])
         ops.append(stat)
         idx = len(ops) - 1
-        if inplace:
+        if inplace or ew_inplace:
             buf = root.get(tensor_args[0][0].name, tensor_args[0][0].name)
             root[node.name] = buf
             writers[buf] = sorted(set(writers.get(buf, [])) | {idx})

@@ -25,14 +25,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
-from torch.distributed.tensor._utils import (
-    compute_local_shape_and_global_offset,
-)
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from ..parallel.sharding import current_rules, full_value, lsc
+from ..parallel.sharding import (current_rules, full_value,
+                                 local_shape_and_offset, lsc)
 from .layers import apply_rope
 from .params import P
 
@@ -64,9 +62,35 @@ def attn_params(cfg: ModelConfig) -> dict:
     return out
 
 
+def _sharded(t: DTensor, dim: int) -> bool:
+    return any(p.is_shard(dim) for p in t.placements)
+
+
+def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """A decode step's ``q`` (B, 1, H, D) ready to split its heads into
+    (KV heads, group): on a mesh torch 2.11's DTensor splits a sharded dim
+    only where its leading part divides the mesh dim, so the heads are
+    gathered first on a mesh dim the KV heads do not divide (the
+    reference's layout constraint on the grouped query drops that axis
+    too).  The prefill and training paths keep their split (torch 2.13
+    makes it a strided shard)."""
+    if not isinstance(q, DTensor):
+        return q
+    mesh = q.device_mesh
+    pl = [Replicate() if p.is_shard(2) and kv_heads % mesh.size(i) else p
+          for i, p in enumerate(q.placements)]
+    return q if pl == list(q.placements) else q.redistribute(mesh, pl)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matmul."""
+    """einsum('bsd,dhk->bshk') as one matmul.  A weight on a mesh whose
+    head dim k is sharded and whose heads h are not (the 'head_dim'
+    fallback, where the heads do not divide the model axis) is flattened
+    k-major: DTensor flattens dims only when the sharded one leads."""
     d, h, k = w.shape
+    if isinstance(w, DTensor) and _sharded(w, 2) and not _sharded(w, 1):
+        y = x @ w.transpose(1, 2).reshape(d, k * h)
+        return y.unflatten(-1, (k, h)).transpose(-1, -2)
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
@@ -162,7 +186,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     G = H // KVH
     cache_k = lsc(cache_k, "batch", "kvseq", "kv_heads", "head_dim")
     cache_v = lsc(cache_v, "batch", "kvseq", "kv_heads", "head_dim")
-    qg = q.reshape(B, KVH, G, D) / math.sqrt(D)
+    qg = _grouped(q, KVH).reshape(B, KVH, G, D) / math.sqrt(D)
     qg = lsc(qg, "batch", "kv_heads", "q_group", "head_dim")
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), cache_k.float())
     s = lsc(s, "batch", "kv_heads", "q_group", "kvseq")
@@ -197,7 +221,7 @@ def decode_attention_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     G = H // KVH
     ck = lsc(ck, "batch", "kvseq", "kv_heads", "head_dim")
     cv = lsc(cv, "batch", "kvseq", "kv_heads", "head_dim")
-    qg = q.reshape(B, KVH, G, D) / math.sqrt(D)
+    qg = _grouped(q, KVH).reshape(B, KVH, G, D) / math.sqrt(D)
     qg = lsc(qg, "batch", "kv_heads", "q_group", "head_dim")
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), ck.float())
     s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
@@ -226,8 +250,8 @@ def _write(buf: torch.Tensor, pos: int, x: torch.Tensor) -> None:
         buf[:, pos:pos + S] = x.to(buf.dtype)
         return
     full = full_value(x)                        # a collective: every rank
-    shape, off = compute_local_shape_and_global_offset(
-        buf.shape, buf.device_mesh, buf.placements)
+    shape, off = local_shape_and_offset(buf.shape, buf.device_mesh,
+                                        buf.placements)
     lo, hi = max(pos, off[1]), min(pos + S, off[1] + shape[1])
     if lo >= hi:
         return

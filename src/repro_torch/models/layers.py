@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
 from ..parallel.sharding import lsc
@@ -115,6 +116,12 @@ def embed_params(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if isinstance(tokens, DTensor):
+        # the table is indexed by the whole batch's tokens: DTensor's rule
+        # replicates them (and torch 2.11's refuses a batch sharded on two
+        # mesh dims, as ('pod', 'data') shards it)
+        mesh = tokens.device_mesh
+        tokens = tokens.redistribute(mesh, [Replicate()] * mesh.ndim)
     x = p["table"][tokens]
     if cfg.name.startswith("paligemma"):  # gemma scales embeddings
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)

@@ -106,6 +106,14 @@ def init(tree, gen: torch.Generator, dtype: torch.dtype = torch.float32):
     return tree_map(lambda p: _init_leaf(gen, p, dtype), tree)
 
 
+def abstract(tree, dtype: torch.dtype = torch.bfloat16):
+    """The tree as ``meta`` tensors (shape and dtype, no storage), each leaf
+    in its own dtype, else ``dtype``: the reference's ``ShapeDtypeStruct``
+    tree."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=leaf_dtype(p, dtype),
+                                          device="meta"), tree)
+
+
 def shardings(tree, rules):
     """Placements tree from a spec tree + ``parallel.sharding.MeshRules``:
     each leaf the DTensor placements (one per mesh dim) of the reference's

@@ -120,6 +120,26 @@ def placements_of(spec: Sequence, mesh) -> tuple:
     return tuple(out)
 
 
+def local_shape_and_offset(shape, mesh, placements) -> tuple:
+    """(local shape, global offset) of this rank's shard of a tensor of
+    ``shape`` placed so on ``mesh``, as DTensor splits it (``torch.chunk``
+    along each sharded dim, in mesh-dim order), in Python integers: torch's
+    own helper builds index tensors, which a capture over fake tensors
+    cannot read back."""
+    local, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for n, c, pl in zip(mesh.shape, coord, placements):
+        if not pl.is_shard():
+            continue
+        d = pl.dim % len(shape)
+        chunk = -(-local[d] // n)
+        start = min(c * chunk, local[d])
+        size = min(local[d], start + chunk) - start
+        off[d] += start
+        local[d] = size
+    return tuple(local), tuple(off)
+
+
 @dataclass
 class MeshRules:
     mesh: object

@@ -25,7 +25,7 @@ from ..configs.base import ShapeConfig
 from ..device import resolve
 from ..models import params as pr
 from ..models.lm import LM
-from ..parallel.sharding import MeshRules, full_value, use_rules
+from ..parallel.sharding import MeshRules, full_value, lsc, use_rules
 from .kvcache import cache_shardings
 
 
@@ -54,11 +54,14 @@ def make_prefill_step(model: LM, rules: Optional[MeshRules] = None):
 
 
 def make_decode_step(model: LM, rules: Optional[MeshRules] = None):
-    """(params, cache, batch{tokens(B,1), pos}) -> (next_token, cache)."""
+    """(params, cache, batch{tokens(B,1), pos}) -> (next_token, cache).
+    On a mesh the logits are gathered whole along the vocabulary before the
+    token is picked, as ``ServeEngine`` picks it."""
 
     def decode_step(params, cache, batch):
         with use_rules(rules):
             logits, new_cache = model.decode_fn(params, cache, batch)
+            logits = lsc(logits, "batch", None)
             return torch.argmax(logits, dim=-1), new_cache
 
     return decode_step

@@ -48,6 +48,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {"repro_torch.parallel", "repro_torch.parallel.sharding",
             "repro_torch.parallel.collectives", "repro_torch.launch.mesh",
             "repro_torch.train.grad_compress"} <= names
+    # slice 14: cells on the production meshes, the SSD kernels' bounds
+    assert {"repro_torch.launch.cell", "repro_torch.kernels.bounds"} <= names
 
 
 TOOLS = sorted((SRC.parent / "tools").glob("*_torch.py"))

@@ -25,6 +25,7 @@ from repro.kernels.ssd_scan import ssd_chunk_bwd_pallas, ssd_chunk_pallas
 from repro.models import attention as ja
 from repro.models import layers as jl
 from repro.models import ssm as jssm
+from repro.models.attention import quantize_kv as j_quantize_kv
 from repro.models.lm import build_model as j_build
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import ARCHS, reduced_config
@@ -738,12 +739,121 @@ def slice4_rows():
          "that differ", "exact", mism)]
 
 
+def _perturbed(cfg, seed=0):
+    """The reference's init plus seeded noise, as a numpy tree (the
+    families' parity tests' parameters, ``tests/_families.py``)."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape))
+        .astype(np.float32), j_build(cfg).init(jax.random.PRNGKey(seed)))
+
+
+def _family_inputs(cfg, batch, seq, seed=1):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, size=(batch, seq))}
+    if cfg.family == "vlm":
+        out["img_embeds"] = rng.standard_normal(
+            (batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def family_rows():
+    """The PR-20 families at reduced width, as
+    ``tests/test_torch_lm_families.py`` and ``test_torch_kv_int8.py`` hold
+    them: llama4-scout-17b-a16e (MoE), paligemma-3b (vlm) and
+    whisper-large-v3 (audio, cross-attention) prefill (logits and caches)
+    and three decode steps (logits and the caches after them), both
+    attention paths; qwen1.5-32b's three decode steps over the int8 KV
+    cache filled from the reference's prefill (logits; the int8 values and
+    the f16 scales after them)."""
+    B, S, steps = 2, 13, 3
+    rows = []
+    for arch, kind in (("llama4-scout-17b-a16e", "moe"),
+                       ("paligemma-3b", "vlm"),
+                       ("whisper-large-v3", "audio, cross-attention")):
+        jcfg, tcfg = j_reduced(JARCHS[arch]), reduced_config(ARCHS[arch])
+        tree = _perturbed(jcfg)
+        tp = params_from_jax(tree, tcfg, device="cpu")
+        batch = _family_inputs(tcfg, B, S)
+        tbatch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        names = ["k", "v", "xk", "xv"] if tcfg.family == "audio" \
+            else ["k", "v"]
+        pre = dec = 0.0
+        for impl in ("flash", "blocked"):
+            jm = j_build(jcfg, attn_impl=impl, kv_block=8)
+            tm = build_model(tcfg, attn_impl=impl, kv_block=8)
+            jlog, jc = jax.jit(jm.prefill_fn)(tree, batch)
+            tlog, tc = tm.prefill_fn(tp, tbatch)
+            pre = max([pre, err(tlog, jlog, rel=True)]
+                      + [err(tc[n], jc[n], rel=True) for n in names])
+            pad = ((0, 0), (0, 0), (0, steps), (0, 0), (0, 0))
+            jcache = {n: np.pad(np.asarray(jc[n]), pad) if n in ("k", "v")
+                      else np.asarray(jc[n]) for n in names}
+            tcache = {n: torch.from_numpy(a.copy()) for n, a in jcache.items()}
+            decode = jax.jit(jm.decode_fn)
+            nxt = np.argmax(np.asarray(jlog), axis=-1)[:, None]
+            for i in range(steps):
+                jl2, jcache = decode(tree, jcache,
+                                     {"tokens": nxt, "pos": np.int32(S + i)})
+                tl2, tcache = tm.decode_fn(tp, tcache, {
+                    "tokens": torch.from_numpy(nxt), "pos": S + i})
+                dec = max(dec, err(tl2, jl2, rel=True))
+                nxt = np.argmax(np.asarray(jl2), axis=-1)[:, None]
+            dec = max([dec] + [err(tcache[n], jcache[n], rel=True)
+                               for n in names])
+        rows += [(f"{arch} ({kind}) prefill, logits and caches, flash and "
+                  f"blocked", "1e-4 of max", pre),
+                 (f"{arch} ({kind}) {steps} decode steps, logits and caches",
+                  "1e-4 of max", dec)]
+
+    arch, smax = "qwen1.5-32b", 16
+    B, S = 2, 11
+    jcfg, tcfg = j_reduced(JARCHS[arch]), reduced_config(ARCHS[arch])
+    tree = _perturbed(jcfg)
+    tp = params_from_jax(tree, tcfg, device="cpu")
+    jm = j_build(jcfg, kv_cache_dtype="int8")
+    tm = build_model(tcfg, kv_cache_dtype="int8")
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, size=(B, S))
+    jlog, jc = jax.jit(jm.prefill_fn)(tree, {"tokens": toks})
+    cache = {n: np.array(a) for n, a in jm.init_cache(B, smax).items()}
+    for name in ("k", "v"):
+        qv, sc = jax.jit(j_quantize_kv)(jc[name])
+        cache[name][:, :, :S] = np.asarray(qv)
+        cache[f"{name}_scale"][:, :, :S] = np.asarray(sc)
+    tcache = tm.init_cache(B, smax, device="cpu")
+    for n, a in cache.items():
+        tcache[n].copy_(torch.from_numpy(a))
+    decode, jcache = jax.jit(jm.decode_fn), cache
+    nxt = np.argmax(np.asarray(jlog), axis=-1)[:, None]
+    logits = 0.0
+    for i in range(steps):
+        jl2, jcache = decode(tree, jcache, {"tokens": nxt,
+                                            "pos": np.int32(S + i)})
+        tl2, tcache = tm.decode_fn(tp, tcache, {
+            "tokens": torch.from_numpy(nxt), "pos": S + i})
+        logits = max(logits, err(tl2, jl2, rel=True))
+        nxt = np.argmax(np.asarray(jl2), axis=-1)[:, None]
+    q8 = max(err(tcache[n], jcache[n]) for n in ("k", "v"))
+    scales = max(err(tcache[n], jcache[n], rel=True)
+                 for n in ("k_scale", "v_scale"))
+    rows += [(f"{arch} int8 KV cache, {steps} decode steps, logits",
+              "1e-4 of max", logits),
+             (f"{arch} int8 KV cache after the steps, int8 values",
+              "1 (a value at a rounding half)", q8),
+             (f"{arch} int8 KV cache after the steps, f16 scales",
+              "1e-3 of max", scales)]
+    return rows
+
+
 GROUPS = {"flash": flash_rows, "layers": layer_rows,
           "attention": attention_rows, "lm_serve": lm_and_serve_rows,
           "ssd": ssd_rows, "mamba": mamba_rows, "ssm_lm": ssm_lm_rows,
           "ssd_bwd": ssd_bwd_rows, "train_parts": train_part_rows,
           "train_step": train_step_rows, "train_loop": train_loop_rows,
-          "slice4": slice4_rows}
+          "slice4": slice4_rows, "families": family_rows}
 
 
 def main(argv=None) -> int:
