@@ -212,8 +212,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     reference's ``--quick``) and its full run on the host, with the ranks
     and plan taus against ``BENCH_cluster.json``;
 31. ``examples/train_lm_torch.py`` at ``--size 100m`` and the reference
-    example's defaults (300 steps of 8 x 256 tokens, microbatch 4, f32,
-    checkpoints every 25 steps, a failure injected at step 150): one
+    example's defaults but **200 steps** (of 8 x 256 tokens, microbatch 4,
+    f32, checkpoints every 25 steps, a failure injected at step 100): one
     restart, the loss falling by more than 0.5, step ms, tokens/s, a
     checkpoint's save and restore seconds; the resumed losses from the
     restored step to the step after the fault equal to an uninterrupted
@@ -230,7 +230,19 @@ Phases, in order; any failure exits non-zero and prints no result:
     before phase 31 and run beside phases 31-32 (host work), parsed and
     simulated: capture and parse seconds, peak resident memory (host
     numbers), graph nodes, ops, collective bytes by kind and group size,
-    the ops that move the most, t_est on ``H100``.
+    the ops that move the most, t_est on ``H100``;
+34. ``python -m repro_torch.launch.dryrun --jobs 2`` on chatglm3-6b
+    prefill_32k and mamba2-1.3b decode_32k (the fake (16, 16) mesh) and
+    ``launch.analyze`` on phase 33's cell, started after phase 31 and run
+    beside phases 32-33 and ``[mem]``; each cell's capture seconds, peak
+    resident memory, peak
+    bytes a rank, collectives by kind and dominant term;
+    ``tools/roofline_table_torch.py`` on the artifacts; a Shard(0) ->
+    Shard(1) redistribution captured as one all-to-all (``[dryrun]``
+    lines); then ``[mem]``: ``core.aten.memory_analysis``'s output + temp
+    bytes of phase 19's mamba2-1.3b training step and chatglm3-6b 2048-token
+    prefill beside the allocator's peak of one real run of each, within
+    0.5-1.05 of it.
 
 The models are freed between phases.  After each model's serving phase,
 the profiler's kernel time of one prefill
@@ -957,6 +969,7 @@ def capture_and_simulate(dev, hw, label, fn, make_args, want, measured,
     rep = simulate(gm, hw=hw, compute_dtype="bf16", engine="both",
                    title=label)
     t_sim = time.perf_counter() - t0
+    memory = aten.memory_analysis(gm)        # phase 34's [mem] reads it
     del gm
     if programs is not None:
         programs.append((label, rep.program))
@@ -969,7 +982,8 @@ def capture_and_simulate(dev, hw, label, fn, make_args, want, measured,
            "gb": {k: v["bytes"] / 1e9 for k, v in classes.items()},
            "occupancy_ms": occ_ms, "schedule_ms": sched_ms,
            "kernel_ms": kernel_ms, "host_ms": host_ms,
-           "capture_s": t_capture, "simulate_s": t_sim}
+           "capture_s": t_capture, "simulate_s": t_sim,
+           "memory_analysis": memory}
     diffs = []
     for sim_key, sim_ms in (("occupancy", occ_ms), ("schedule", sched_ms)):
         for meas_key, meas_ms in (("kernel", kernel_ms), ("host", host_ms)):
@@ -1502,26 +1516,26 @@ def model_zoo(dev) -> dict:
 
 
 def calibration_clis() -> dict:
-    """Phase 27, the calibration CLIs on the card: ``kernel_suite_torch``
-    (``fit_h100``, the Fig. 3 table through K1, ``--quick``) and
-    ``triad_torch`` (K2 at 4 CTA caps, ``--quick``), each writing its JSON
-    into a temporary directory, K1's and K2's launches counted from 0 and
-    the JSON held to its schema."""
+    """Phase 27, the calibration CLIs on the card through ``tools/run_torch.py
+    --quick``: ``kernel_suite_torch`` (``fit_h100``, the Fig. 3 table
+    through K1) and ``triad_torch`` (K2 at 4 CTA caps), each writing its
+    JSON into a temporary directory, K1's and K2's launches counted from 0,
+    the JSON held to its schema and the CSV to one row a kernel, two of
+    the summary and one a Triad CTA cap."""
     import tempfile
 
     from repro_torch.kernels import stream
     sys.path.insert(0, str(ROOT / "tools"))
-    import kernel_suite_torch
-    import triad_torch
+    import run_torch
 
     t_phase = time.perf_counter()
     stream.elementwise.launches = stream.stream_triad.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         ks, tr = Path(tmp) / "kernel_suite.json", Path(tmp) / "triad.json"
-        if kernel_suite_torch.main(["--quick", "--out", str(ks)]) \
-                or triad_torch.main(["--quick", "--out", str(tr)]):
+        if run_torch.main(["--quick", "--out-dir", tmp]):
             fail("a calibration CLI exited non-zero")
         suite, triad = json.loads(ks.read_text()), json.loads(tr.read_text())
+        csv = run_torch.csv_rows(Path(tmp))
     launches = {"stream_elementwise": stream.elementwise.launches,
                 "stream_triad": stream.stream_triad.launches}
     want = {"kernels", "scheduler_throughput", "summary", "calibrated",
@@ -1531,9 +1545,13 @@ def calibration_clis() -> dict:
         fail(f"the CLIs' JSON misses keys: {sorted(suite)}, {sorted(triad)}")
     if not all(launches.values()):
         fail(f"the calibration CLIs launched {launches}")
+    if len(csv) != len(suite["kernels"]) + 2 + len(triad["triad_l2"]) \
+            + len(triad["triad_mem"]):
+        fail(f"run_torch's CSV has {len(csv)} rows")
     seconds = time.perf_counter() - t_phase
-    print(f"[cli] phase 27: kernel_suite_torch --quick and triad_torch "
-          f"--quick in {seconds:.1f} s; launches {launches}; Fig. 3 mean|.| "
+    print(f"[cli] phase 27: tools/run_torch.py --quick (kernel_suite_torch "
+          f"and triad_torch) in {seconds:.1f} s; launches {launches}; "
+          f"{len(csv)} CSV rows; Fig. 3 mean|.| "
           f"{suite['summary']['mean_abs_diff_pct']:.1f} % over "
           f"{len(suite['kernels'])} kernels; Triad plateau "
           f"{triad['calibration']['mem']['plateau'] / 1e9:.1f} GB/s")
@@ -2098,6 +2116,9 @@ def meshes_on_card(dev, check_kernels) -> dict:
 
 # phase 31: examples/train_lm_torch.py at --size 100m
 TRAIN_LM_LOSS_RTOL = 1e-5
+# the reference example's 300 steps cut to 200 (the fault at step 100):
+# phase 34 needs the time the script's limit leaves
+TRAIN_LM_STEPS = 200
 
 
 def load_example(name: str):
@@ -2112,12 +2133,13 @@ def load_example(name: str):
 
 def train_lm_on_card(dev) -> dict:
     """Phase 31, ``examples/train_lm_torch.py`` at ``--size 100m`` and the
-    reference example's defaults (300 steps of 8 x 256 tokens, microbatch
-    4, lr 6e-4, f32 parameters and compute, checkpoints every 25 steps, a
-    failure injected at step 150): one restart, the loss falling by more
-    than 0.5 (the example's own check), step ms, tokens/s and one
-    checkpoint's save and restore seconds; then the same model trained
-    without checkpoints or a failure for 152 steps from the same seed: the
+    reference example's defaults but ``TRAIN_LM_STEPS`` steps (of 8 x 256
+    tokens, microbatch 4, lr 6e-4, f32 parameters and compute, checkpoints
+    every 25 steps, a failure injected halfway): one restart, the loss
+    falling by more than 0.5 (the example's own check), step ms, tokens/s
+    and one checkpoint's save and restore seconds; then the same model
+    trained without checkpoints or a failure to the step after the fault
+    from the same seed: the
     resumed run's losses from the restored step to the step after the
     fault equal it, bit for bit if the card's run is deterministic, else
     within 1e-5 relative (the step's f32 reductions in another order).
@@ -2141,7 +2163,8 @@ def train_lm_on_card(dev) -> dict:
     fa.flash_attention_bhsd.launches = ssd.ssd_chunk.launches = 0
     ssd.ssd_chunk_bwd.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        args = ex.parse_args(["--size", "100m", "--ckpt-dir",
+        args = ex.parse_args(["--size", "100m", "--steps",
+                              str(TRAIN_LM_STEPS), "--ckpt-dir",
                               str(Path(tmp) / "ckpt")])
         rep, stats = ex.run(args)
     launches = counts()
@@ -2435,6 +2458,231 @@ def cell_on_production_meshes(tmp: Path, procs: dict) -> dict:
         f"{n} {r['wall_s']:.1f} s" for n, r in out.items())
         + " (processes beside phases 31-32)")
     return out
+
+# phase 34: the dry-run, its analysis and tables; the memory analysis
+DRYRUN_CELLS = (("chatglm3-6b", "prefill_32k"),      # repair (b)
+                ("mamba2-1.3b", "decode_32k"))       # repair (c)
+DRYRUN_TIMEOUT_S = 600
+MEM_RATIO = (0.5, 1.05)
+RESHARD_PROBE = r"""
+import json, torch, torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.core import aten
+from repro_torch.launch.cell import capture_on_mesh
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4),
+                  mesh_dim_names=("data", "model"))
+def body(x):
+    d = DTensor.from_local(x, mesh, [Replicate(), Shard(0)], run_check=False)
+    return d.redistribute(mesh, [Replicate(), Shard(1)]).to_local()
+prog = aten.parse_graph(capture_on_mesh(body, torch.randn(16, 256)))
+print(json.dumps([(o.opcode, o.comm_bytes, o.group_size)
+                  for o in prog.ops if o.opclass == "collective"]))
+dist.destroy_process_group()
+"""
+
+
+def start_dryrun(tmp: Path) -> dict:
+    """Phase 34's processes, started after phase 31 (host work, one torch
+    thread each, beside phases 32-33 and the memory check): the dry-run CLI
+    on ``DRYRUN_CELLS`` (single pod, ``--jobs 2``) and ``launch.analyze``
+    on phase 33's cell."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    cmds = {"dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--mesh", "single", "--jobs", "2", "--force",
+                       "--out", str(tmp / "dryrun"),
+                       *(x for a, s_ in DRYRUN_CELLS
+                         for x in ("--cell", f"{a}/{s_}"))],
+            "analyze": [sys.executable, "-m", "repro_torch.launch.analyze",
+                        "--arch", CELL_ARCH, "--shape", CELL_SHAPE,
+                        "--top", "10"]}
+    procs = {}
+    for name, cmd in cmds.items():
+        log = open(tmp / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=ROOT), log, time.perf_counter())
+    return procs
+
+
+def dryrun_phase(tmp: Path, procs: dict) -> dict:
+    """Phase 34, the dry-run and what reads it (host numbers of the card's
+    machine; modelled terms, not card times): ``python -m
+    repro_torch.launch.dryrun`` on chatglm3-6b prefill_32k (its heads split
+    per rank, repair b) and mamba2-1.3b decode_32k (its batched products on
+    local shards, repair c) on the fake (16, 16) mesh, each cell's capture
+    seconds, peak resident memory, peak bytes a rank, collectives by kind
+    and dominant term; ``launch.analyze`` on phase 33's cell;
+    ``tools/roofline_table_torch.py`` on the artifacts; and repair (a)'s
+    probe on this torch: a Shard(0) -> Shard(1) redistribution captured as
+    ``Cell.capture`` captures it is one all-to-all of the local shard."""
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import roofline_table_torch
+
+    out = {}
+    for name, (proc, log, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the time limit"
+        log.close()
+        text = (tmp / f"{name}.log").read_text()
+        if rc != 0:
+            fail(f"phase 34: {name} exited {rc}: {text[-3000:]}")
+        out[name] = {"seconds": time.perf_counter() - t0, "log": text}
+    if "all cells captured" not in out["dryrun"]["log"]:
+        fail(f"phase 34: the dry-run did not capture every cell: "
+             f"{out['dryrun']['log'][-2000:]}")
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        r = json.loads((tmp / "dryrun" / "single_pod" /
+                        f"{arch}__{shape}.json").read_text())
+        mem, rf = r["memory_analysis"], r["roofline"]
+        cells[f"{arch}/{shape}"] = {
+            "capture_s": r["t_lower_s"], "parse_sim_s": r["t_compile_s"],
+            "peak_rss_gib": r["peak_rss_bytes"] / 2**30,
+            "peak_gib_a_rank": mem["peak_bytes_est"] / 2**30,
+            "memory_analysis": mem, "collectives": r["collectives"],
+            "roofline": rf, "fits_hbm": r["fits_hbm"],
+            "graph_nodes": r["graph_nodes"]}
+        print(f"[dryrun] {arch} {shape} single_pod ({r['n_chips']} fake "
+              f"ranks; host numbers): capture {r['t_lower_s']:.2f} s, parse "
+              f"+ simulate {r['t_compile_s']:.2f} s, peak RSS "
+              f"{r['peak_rss_bytes'] / 2**30:.2f} GiB, {r['graph_nodes']} "
+              f"graph nodes; peak {mem['peak_bytes_est'] / 2**30:.2f} GiB a "
+              f"rank (arguments {mem['argument_bytes'] / 2**30:.2f}, temp "
+              f"{mem['temp_bytes'] / 2**30:.2f}, fits "
+              f"{r['hbm_per_chip'] / 1e9:.0f} GB: {r['fits_hbm']}); "
+              f"collectives " + ", ".join(
+                  f"{k}: {v['count']} ops {v['bytes'] / 2**20:.1f} MiB"
+                  for k, v in sorted(r["collectives"].items()))
+              + f"; dominant {rf['dominant']} (compute "
+              f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}"
+              f", collective {rf['collective_s'] * 1e3:.3f} ms, modelled)")
+        if not (r["roofline"]["dominant"] and r["collectives"]
+                and mem["peak_bytes_est"] > 0):
+            fail(f"phase 34: {arch} {shape}'s artifact {r}")
+    analyze = out["analyze"]["log"]
+    for key in ("== PA report", "memory_analysis: {", "== top 10 ops",
+                "== op-count histogram"):
+        if key not in analyze:
+            fail(f"phase 34: analyze printed no {key!r}: {analyze[-2000:]}")
+    top = analyze.split("== top 10 ops by modeled time ==\n")[1]
+    print(f"[dryrun] launch.analyze {CELL_ARCH} {CELL_SHAPE} (16, 16) in "
+          f"{out['analyze']['seconds']:.1f} s: "
+          + next(line.strip() for line in analyze.splitlines()
+                 if line.strip().startswith("estimate:")))
+    for line in top.splitlines()[:4]:
+        print(f"[dryrun]   {line}")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = roofline_table_torch.main(["--dir", str(tmp / "dryrun")])
+    if rc:
+        fail("phase 34: roofline_table_torch.py found no artifacts")
+    for line in buf.getvalue().splitlines():
+        print(f"[dryrun] {line}")
+    probe = subprocess.run([sys.executable, "-c", RESHARD_PROBE],
+                           capture_output=True, text=True, timeout=300,
+                           env={**os.environ,
+                                "PYTHONPATH": str(ROOT / "src")})
+    rows = (json.loads(probe.stdout.splitlines()[-1])
+            if probe.returncode == 0 else None)
+    print(f"[dryrun] repair (a) on torch's own DTensor here: a Shard(0) -> "
+          f"Shard(1) redistribution of a (64, 256) f32 tensor over the "
+          f"4-rank 'model' axis captured as {rows}")
+    if rows != [["all-to-all", 16 * 256 * 4, 4]]:
+        fail(f"phase 34: the reshard probe gave {rows}: "
+             f"{probe.stderr[-2000:]}")
+    return {"cells": cells, "reshard_probe": rows,
+            "dryrun_s": out["dryrun"]["seconds"],
+            "analyze_s": out["analyze"]["seconds"]}
+
+
+def memory_vs_allocator(dev, step_sims) -> list:
+    """Phase 34's ``[mem]`` lines: ``core.aten.memory_analysis``'s output +
+    temp bytes of phase 19's captures of mamba2-1.3b's training step (the
+    kernel path) and chatglm3-6b's 2048-token prefill (flash), beside
+    ``torch.cuda.max_memory_allocated()`` of one real run of the same call,
+    from ``reset_peak_memory_stats()`` once its inputs exist (less what is
+    allocated then).  The graph's order frees each tensor at its last
+    read and eager frees it no earlier, so the estimate should not exceed
+    the allocator's peak; it fails outside ``MEM_RATIO`` of it."""
+    import torch
+
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.trainer import make_train_step
+
+    def captured(label):
+        row = next((r for r in step_sims if r["capture"] == label), None)
+        if row is None:
+            fail(f"[mem] phase 19 captured no {label!r}")
+        return row["memory_analysis"]
+
+    def train_case():
+        cfg = ARCHS[SSM_ARCH]
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "smoke", TRAIN_SEQ, SSM_TRAIN_BATCH, "train"))
+        model = build_model(cfg, ssd_impl="kernel")
+        step, *_, opt_init = make_train_step(model, run)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=getattr(torch, run.param_dtype))
+        return (f"{SSM_ARCH} training step {SSM_TRAIN_BATCH} x {TRAIN_SEQ}, "
+                "kernel path", step,
+                (params, opt_init(params),
+                 {"tokens": torch.zeros((SSM_TRAIN_BATCH, TRAIN_SEQ),
+                                        dtype=torch.long, device=dev)}))
+
+    def prefill_case():
+        model = build_model(ARCHS["chatglm3-6b"], attn_impl="flash",
+                            ssd_impl="kernel")
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)
+        return (f"chatglm3-6b prefill {TRAIN_SEQ}, kernel path",
+                prefill_of(model),
+                (params, {"tokens": torch.zeros((1, TRAIN_SEQ),
+                                                dtype=torch.long,
+                                                device=dev)}))
+
+    rows = []
+    for make in (train_case, prefill_case):
+        label, fn, real = make()
+        mem = captured(label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(*real)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out, real, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        est = mem["output_bytes"] + mem["temp_bytes"]
+        ratio = est / peak
+        print(f"[mem] {label}: memory_analysis output + temp "
+              f"{est / 2**30:.3f} GiB (output {mem['output_bytes'] / 2**30:.3f}"
+              f", temp {mem['temp_bytes'] / 2**30:.3f}, arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f}) against the allocator's "
+              f"peak over its inputs {peak / 2**30:.3f} GiB: ratio "
+              f"{ratio:.3f} (must lie in {MEM_RATIO})")
+        if not MEM_RATIO[0] <= ratio <= MEM_RATIO[1]:
+            fail(f"[mem] {label}: ratio {ratio:.3f} outside {MEM_RATIO}")
+        rows.append({"case": label, "estimate_bytes": est,
+                     "allocator_peak_bytes": peak, "ratio": ratio,
+                     "memory_analysis": mem})
+    return rows
+
 
 def main() -> int:
     import torch
@@ -3706,15 +3954,23 @@ def main() -> int:
 
     # 31.-33. train_lm, the SSD kernel-cost bench, a full-width cell; the
     # cell's captures are host work, in processes beside phases 31-32 -----
+    # 34.'s host processes start after phase 31, whose host-bound loop they
+    # would slow, and run beside phases 32-33 and the memory check
     import tempfile
     with tempfile.TemporaryDirectory() as cell_tmp:
         procs = start_cell_captures(Path(cell_tmp))
+        dry_procs = {}
         try:
             train_lm_phase = train_lm_on_card(dev)
+            dry_procs = start_dryrun(Path(cell_tmp))
             ssd_cost_phase = ssd_cost_on_card(dev, check_at)
             cell_phase = cell_on_production_meshes(Path(cell_tmp), procs)
+            # 34. the memory analysis, then the dry-run and what reads it
+            memory = memory_vs_allocator(dev, step_sims)
+            dryrun_record = dryrun_phase(Path(cell_tmp), dry_procs)
+            dryrun_record["memory"] = memory
         finally:
-            for proc, log, _ in procs.values():
+            for proc, log, _ in [*procs.values(), *dry_procs.values()]:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -3741,6 +3997,7 @@ def main() -> int:
     print(json.dumps({"train_lm": train_lm_phase}))
     print(json.dumps({"ssd_kernel_cost": ssd_cost_phase}))
     print(json.dumps({"cell_capture": cell_phase}))
+    print(json.dumps({"dryrun": dryrun_record}))
     by_path = {k: {r["arch"]: r["launches"][k] for r in
                    servings + trainings + family_servings + [int8_record]}
                for k in KERNELS}

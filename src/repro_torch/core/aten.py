@@ -111,7 +111,7 @@ DTYPE_NAMES = {
 # ops that only re-describe memory: no kernel, no bytes
 VIEWS = {"view", "_unsafe_view", "permute", "t", "transpose", "expand",
          "unsqueeze", "squeeze", "select", "slice", "alias", "detach",
-         "split_with_sizes", "as_strided"}
+         "split_with_sizes", "as_strided", "detach_"}
 # allocations: no kernel, no bytes (on CUDA the decompositions leave some
 # that nothing reads)
 ALLOCS = {"empty", "empty_strided"}
@@ -427,3 +427,98 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
     prog = Program(ops=ops, entry=type(gm).__name__, n_partitions=1)
     prog.exact_dtypes = True
     return prog
+
+
+# ------------------------------------------------------------ memory
+def _nbytes(val) -> float:
+    return float(sum(t.numel() * t.element_size() for t in _tensors(val)))
+
+
+def _aliases_operand(node) -> bool:
+    """A node that allocates nothing: a view, a collective's wait, one output
+    of a multi-output op, or an in-place write (its operand 0's buffer)."""
+    if node.target is operator.getitem:
+        return True
+    if not isinstance(node.target, torch._ops.OpOverload):
+        return False
+    name = _packet(node.target)
+    if name in VIEWS or name in REGION_WRITES:
+        return True
+    if _is_collective(node.target):
+        return name in WAITS
+    return (name.endswith("_") and name[:-1] in OPCODES
+            and _classify(OPCODES[name[:-1]]) == "elementwise")
+
+
+def memory_analysis(gm: torch.fx.GraphModule,
+                    donated=None) -> Dict[str, float]:
+    """One rank's memory for a captured graph, with the reference's keys
+    (``repro.core.simulate`` reads them from XLA's ``memory_analysis``):
+
+    * ``argument_bytes``: the placeholders' bytes (each rank's shards);
+    * ``output_bytes``: the returned tensors' bytes, each once;
+    * ``temp_bytes``: the peak, in the graph's order, of the live
+      intermediates that are neither: a tensor lives from its node to the
+      last node that reads it or a view of it (a view keeps its base alive
+      and allocates nothing, nor does an in-place write, a collective's
+      wait or an output of a multi-output op; one op's outputs and inputs
+      are live together);
+    * ``alias_bytes``: the bytes of donated arguments that an output of the
+      same shape and dtype replaces (each output replaces one);
+    * ``peak_bytes_est`` = argument + output + temp - alias, as the
+      reference defines it.
+
+    ``donated`` holds the indices of the donated placeholders; by default
+    those whose ``node.meta["donated"]`` is set (``launch.cell.Cell.capture``
+    marks the arguments of ``donate_argnums`` so)."""
+    nodes = list(gm.graph.nodes)
+    base: Dict[str, str] = {}
+    size: Dict[str, float] = {}
+    last: Dict[str, int] = {}
+    inputs = [n for n in nodes if n.op == "placeholder"]
+    if donated is None:
+        donated = [i for i, n in enumerate(inputs) if n.meta.get("donated")]
+    for i, node in enumerate(nodes):
+        if node.op == "output":
+            continue
+        if node.op == "call_function" and _aliases_operand(node):
+            src = node.args[0]
+            base[node.name] = base.get(src.name, src.name)
+        else:
+            base[node.name] = node.name
+            size[node.name] = _nbytes(node.meta.get("val"))
+        last[base[node.name]] = max(last.get(base[node.name], i), i)
+        for a in node.all_input_nodes:
+            b = base.get(a.name, a.name)
+            last[b] = max(last.get(b, i), i)
+    out_node = next(n for n in nodes if n.op == "output")
+    returned, seen = [], set()
+    for a in out_node.all_input_nodes:
+        if a.name not in seen:
+            seen.add(a.name)
+            returned.append(a)
+    out_bufs = {base.get(a.name, a.name) for a in returned}
+    args = {n.name for n in inputs}
+    frees: Dict[int, float] = {}
+    temp = peak = 0.0
+    for i, node in enumerate(nodes):
+        b = node.name
+        if base.get(b) == b and b not in args and b not in out_bufs:
+            temp += size[b]
+            peak = max(peak, temp)
+            frees[last[b]] = frees.get(last[b], 0.0) + size[b]
+        temp -= frees.pop(i, 0.0)
+    arg_b = sum(_nbytes(n.meta.get("val")) for n in inputs)
+    out_b = sum(_nbytes(a.meta.get("val")) for a in returned)
+    free_outs = [(tuple(t.shape), t.dtype) for a in returned
+                 for t in _tensors(a.meta.get("val"))]
+    alias = 0.0
+    for j in sorted(donated):
+        for t in _tensors(inputs[j].meta.get("val")):
+            key = (tuple(t.shape), t.dtype)
+            if key in free_outs:
+                free_outs.remove(key)
+                alias += t.numel() * t.element_size()
+    return {"argument_bytes": arg_b, "output_bytes": out_b,
+            "temp_bytes": peak, "alias_bytes": alias,
+            "peak_bytes_est": arg_b + out_b + peak - alias}

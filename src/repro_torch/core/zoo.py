@@ -254,19 +254,18 @@ def trace_phase(arch: str, phase: str,
     shape = shape or ZOO_SHAPES[phase]
     key = (arch, phase, shape.seq_len, shape.global_batch, param_dtype)
     prog = _PROGRAM_CACHE.get(key)
-    if prog is not None:
-        return prog
     cache_file = None
     if hlo_cache_dir is not None:
         cache_file = hlo_cache_path(Path(hlo_cache_dir), arch, phase,
                                     shape, param_dtype)
-        if cache_file.exists():
+        if prog is None and cache_file.exists():
             prog = program_from_json(cache_file.read_text())
     if prog is None:
         prog = parse_graph(_phase_graph(arch, phase, shape, param_dtype))
-        if cache_file is not None:
-            cache_file.parent.mkdir(parents=True, exist_ok=True)
-            cache_file.write_text(program_to_json(prog))
+    # persisted even where the program came from this process's memo
+    if cache_file is not None and not cache_file.exists():
+        cache_file.parent.mkdir(parents=True, exist_ok=True)
+        cache_file.write_text(program_to_json(prog))
     _PROGRAM_CACHE[key] = prog
     return prog
 

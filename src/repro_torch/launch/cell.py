@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
@@ -88,6 +89,28 @@ class Cell:
     def name(self) -> str:
         return f"{self.arch}__{self.shape.name}"
 
+    def _shards(self) -> list:
+        """(local shape, dtype, global shape, placements, argument index) of
+        each tensor input, in the order of ``_map_state``'s walk."""
+        sizes = tuple(self.rules.mesh.shape)
+        out = []
+        for i, (a, sh) in enumerate(zip(self.args, self.in_shardings)):
+            def visit(t, placements, i=i):
+                if isinstance(t, torch.Tensor):
+                    out.append((_local_shape(t.shape, placements, sizes),
+                                t.dtype, tuple(t.shape), tuple(placements),
+                                i))
+                return t
+            _map_state(visit, a, sh)
+        return out
+
+    def argument_bytes(self) -> float:
+        """The bytes of one rank's shards of the tensor inputs: the
+        ``argument_bytes`` that ``core.aten.memory_analysis`` finds in the
+        capture's placeholders, without capturing."""
+        return float(sum(math.prod(local) * dt.itemsize
+                         for local, dt, *_ in self._shards()))
+
     def capture(self) -> torch.fx.GraphModule:
         """The step as one rank's ATen graph on the cell's mesh (module
         docstring); needs the mesh's process group."""
@@ -95,31 +118,20 @@ class Cell:
         from torch.distributed.tensor import DTensor
 
         mesh = self.rules.mesh
-        sizes = tuple(mesh.shape)
-        leaves, globals_ = [], []
-
-        def collect(t, placements):
-            if not isinstance(t, torch.Tensor):
-                return t
-            local = list(t.shape)
-            for size, pl in zip(sizes, placements):
-                if pl.is_shard():
-                    local[pl.dim] //= size
-            leaves.append((tuple(local), t.dtype))
-            globals_.append((tuple(t.shape), tuple(placements)))
-            return _Slot(len(leaves) - 1)
-
-        slots = [_map_state(collect, a, s)
+        shards = self._shards()
+        n = iter(range(len(shards)))
+        slots = [_map_state(lambda t, _: _Slot(next(n))
+                            if isinstance(t, torch.Tensor) else t, a, s)
                  for a, s in zip(self.args, self.in_shardings)]
         with FakeTensorMode():
-            locals_ = [torch.empty(shp, dtype=dt, device=mesh.device_type)
-                       for shp, dt in leaves]
+            locals_ = [torch.empty(local, dtype=dt, device=mesh.device_type)
+                       for local, dt, *_ in shards]
 
         def step(locals_):
             def wrap(slot, _):
                 if not isinstance(slot, _Slot):
                     return slot
-                shape, placements = globals_[slot.i]
+                shape, placements = shards[slot.i][2:4]
                 return DTensor.from_local(
                     locals_[slot.i], mesh, placements, run_check=False,
                     shape=torch.Size(shape), stride=_contiguous(shape))
@@ -132,50 +144,111 @@ class Cell:
                     out = self.fn(*args)
             return _to_local(out)
 
-        with _concrete_strided_layout():
-            gm = aten.capture(step, locals_)
-        # what feeds no output goes, as XLA drops it: torch 2.11's DTensor
-        # propagates shapes by running each op on empty tensors of the
-        # global shape, which the capture records beside the rank's ops
-        gm.graph.eliminate_dead_code()
-        gm.recompile()
+        gm = capture_on_mesh(step, locals_)
+        inputs = [n for n in gm.graph.nodes if n.op == "placeholder"]
+        for node, shard in zip(inputs, shards):
+            node.meta["donated"] = shard[4] in self.donate_argnums
         return gm
 
 
+def capture_on_mesh(fn: Callable, *args) -> torch.fx.GraphModule:
+    """``core.aten.capture(fn, *args)`` of a step over DTensors, as
+    ``Cell.capture`` takes it: DTensor's redistributions traced as a CUDA
+    mesh issues them (``_dtensor_as_on_cuda``), and without the nodes that
+    feed no output, as XLA drops them (torch 2.11's DTensor propagates
+    shapes by running each op on empty tensors of the global shape, which
+    the capture records beside the rank's ops)."""
+    with _dtensor_as_on_cuda():
+        gm = aten.capture(fn, *args)
+    gm.graph.eliminate_dead_code()
+    gm.recompile()
+    return gm
+
+
 @contextlib.contextmanager
-def _concrete_strided_layout():
-    """DTensor's layout arithmetic for a strided shard (a dim flattened
-    from two dims sharded on different mesh dims, as a bmm's batch dims
-    are) builds an index tensor and reads it back; inside a capture that
-    tensor is fake and cannot be read.  Within this context it is computed
-    outside the capture, on real integers (torch versions without the
-    method are left as they are)."""
+def _dtensor_as_on_cuda():
+    """DTensor's layout arithmetic and collectives as on a CUDA mesh, for a
+    capture on a CPU mesh over torch's fake process group (where nothing
+    runs):
+
+    * a strided shard's layout (a dim flattened from two dims sharded on
+      different mesh dims, as a bmm's batch dims are) builds an index
+      tensor and reads it back; inside a capture that tensor is fake, so
+      ``_StridedShard.local_shard_size_and_offset`` is computed outside the
+      capture, on real integers (torch 2.11 and 2.13 have the method);
+    * a Shard(a) -> Shard(b) redistribution is an all-to-all
+      (``Shard._to_new_shard_dim`` calls ``shard_dim_alltoall`` of
+      ``torch.distributed.tensor._collective_utils``, imported into
+      ``placement_types``, in 2.11 and 2.13).  On a CPU mesh that function
+      falls back to an all-gather and a chunk, because gloo has no
+      all-to-all; here it is ``_all_to_all`` instead, the
+      ``_c10d_functional.all_to_all_single`` a CUDA mesh issues through
+      ``_dtensor::shard_dim_alltoall``.
+    """
     from torch._subclasses.fake_tensor import unset_fake_temporarily
-    from torch.distributed.tensor import placement_types
+    from torch.distributed.tensor import _collective_utils, placement_types
     from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 
+    patches = [(m, "shard_dim_alltoall", _all_to_all)
+               for m in (_collective_utils, placement_types)]
     cls = getattr(placement_types, "_StridedShard", None)
-    name = "local_shard_size_and_offset"
-    fn = getattr(cls, name, None)
-    if fn is None:
-        yield
-        return
-
-    def concrete(*args, **kwargs):
-        with unset_fake_temporarily(), disable_proxy_modes_tracing():
-            return fn(*args, **kwargs)
-
-    setattr(cls, name, concrete)
+    layout = getattr(cls, "local_shard_size_and_offset", None)
+    if layout is not None:
+        def concrete(*args, **kwargs):
+            with unset_fake_temporarily(), disable_proxy_modes_tracing():
+                return layout(*args, **kwargs)
+        patches.append((cls, "local_shard_size_and_offset", concrete))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
     try:
         yield
     finally:
-        setattr(cls, name, fn)
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def _all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """``input``, sharded on ``gather_dim`` over ``mesh_dim``, resharded on
+    ``shard_dim`` by one ``all_to_all_single``: chunk j of ``shard_dim`` goes
+    to rank j, and rank j's piece comes back in its place on
+    ``gather_dim`` (DTensor pads ``shard_dim`` to a multiple of the group
+    first)."""
+    import torch.distributed._functional_collectives as funcol
+
+    n, nd = mesh.size(mesh_dim), input.dim()
+    x = input.movedim(shard_dim, 0).contiguous()
+    y = funcol.all_to_all_single(x, None, None, (mesh, mesh_dim))
+    if isinstance(y, funcol.AsyncCollectiveTensor):
+        y = y.wait()
+    # y as (n, shard_dim's chunk, the other dims): put the sender's index n
+    # before gather_dim and the chunk at shard_dim, in one copy
+    y = y.view(n, x.shape[0] // n, *x.shape[1:])
+    order = []
+    for d in range(nd):
+        if d == gather_dim:
+            order.append(0)
+        order.append(1 if d == shard_dim else 2 + d - (d > shard_dim))
+    shape = list(input.shape)
+    shape[gather_dim] *= n
+    shape[shard_dim] //= n
+    return y.permute(order).reshape(shape)
 
 
 @dataclass(frozen=True)
 class _Slot:
     """An input's index among ``Cell.capture``'s local shards."""
     i: int
+
+
+def _local_shape(shape, placements, sizes) -> tuple:
+    """A rank's shard of ``shape`` (even splits, as the production shapes
+    divide)."""
+    local = list(shape)
+    for size, pl in zip(sizes, placements):
+        if pl.is_shard():
+            local[pl.dim] //= size
+    return tuple(local)
 
 
 def _contiguous(shape) -> tuple:

@@ -25,12 +25,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
-from ..parallel.sharding import (current_rules, full_value,
-                                 local_shape_and_offset, lsc)
+from ..parallel.sharding import (current_rules, full_value, local_einsum,
+                                 local_shape_and_offset, lsc, matmul,
+                                 sum_grad)
 from .layers import apply_rope
 from .params import P
 
@@ -72,8 +73,8 @@ def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     only where its leading part divides the mesh dim, so the heads are
     gathered first on a mesh dim the KV heads do not divide (the
     reference's layout constraint on the grouped query drops that axis
-    too).  The prefill and training paths keep their split (torch 2.13
-    makes it a strided shard)."""
+    too).  The prefill and training paths attend on each rank's heads
+    instead (``_on_local_heads``)."""
     if not isinstance(q, DTensor):
         return q
     mesh = q.device_mesh
@@ -89,9 +90,9 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k-major: DTensor flattens dims only when the sharded one leads."""
     d, h, k = w.shape
     if isinstance(w, DTensor) and _sharded(w, 2) and not _sharded(w, 1):
-        y = x @ w.transpose(1, 2).reshape(d, k * h)
+        y = matmul(x, w.transpose(1, 2).reshape(d, k * h))
         return y.unflatten(-1, (k, h)).transpose(-1, -2)
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def project_q(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +116,48 @@ def project_kv(p: dict, x: torch.Tensor):
     return k, v
 
 
+def _on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``fn(q, k, v)`` on each rank's query heads, for a ``q`` whose heads a
+    mesh dim shards that the KV heads do not divide (chatglm3-6b's 2,
+    nemotron-4-340b's, qwen1.5-110b's and grok-1-314b's 8 over the 16-way
+    'model' axis); None for any other ``q``.
+
+    Splitting such heads into (KV heads, group) is a view torch 2.11's
+    DTensor refuses (2.13 makes it a strided shard).  Instead K and V are
+    gathered on that mesh dim (their heads, or the head dim they shard
+    there), and each rank attends with its local query heads against the
+    KV heads those read: head h reads KV head h // G, and the rank's
+    coordinate gives its heads' range.  The batch stays sharded as q's.
+    The gradient of K and V is summed over the heads' mesh dims."""
+    if not isinstance(q, DTensor):
+        return None
+    mesh, KVH = q.device_mesh, k.shape[2]
+    heads = [m for m, p in enumerate(q.placements) if p.is_shard(2)]
+    if not any(KVH % mesh.size(m) for m in heads) or any(
+            p.is_shard() and p.dim not in (0, 2) for p in q.placements):
+        return None
+    G = q.shape[2] // KVH
+    (*_, Hl, _), (*_, h0, _) = local_shape_and_offset(q.shape, mesh,
+                                                      q.placements)
+    if not (h0 // G == (h0 + Hl - 1) // G or (h0 % G == 0 and Hl % G == 0)):
+        return None                    # heads straddling a group's edge
+    kv_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in q.placements]
+    kl, vl = (sum_grad(_full_heads(t, mesh, kv_pl).to_local(), mesh, heads)
+              [:, :, h0 // G:(h0 + Hl - 1) // G + 1] for t in (k, v))
+    out = fn(q.to_local(), kl, vl).contiguous()   # the global stride's layout
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
+def _full_heads(t, mesh, placements):
+    """``t`` (a DTensor or a plain tensor, replicated) redistributed to
+    ``placements``."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, placements)
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_offset: int = 0,
                       block: int = 1024) -> torch.Tensor:
@@ -123,8 +166,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, H, D); k, v: (B, Sk, KVH, D); H % KVH == 0.
     Returns (B, Sq, H, D).  fp32 accumulation.  K/V are zero-padded to a
     block multiple and the padding masked, as in the reference (a row that
-    sees no key then averages V over the padded length, as there).
+    sees no key then averages V over the padded length, as there).  On a
+    mesh whose heads the KV heads do not divide, each rank attends with
+    its own heads (``_on_local_heads``).
     """
+    local = _on_local_heads(
+        lambda *a: blocked_attention(*a, causal=causal, q_offset=q_offset,
+                                     block=block), q, k, v)
+    if local is not None:
+        return local
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -141,7 +191,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kp, vp = F.pad(k, pad), F.pad(v, pad)
     for k0 in range(0, Sk, block):
         kb, vb = kp[:, k0:k0 + block], vp[:, k0:k0 + block]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
+        s = local_einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
         kpos = torch.arange(k0, k0 + block, device=q.device)
         invalid = kpos >= Sk
         if causal:
@@ -151,7 +201,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(),
+        pv = local_einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(),
                           vb.float())
         acc = acc * alpha[..., None] + pv
         m = m_new
@@ -188,13 +238,13 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     cache_v = lsc(cache_v, "batch", "kvseq", "kv_heads", "head_dim")
     qg = _grouped(q, KVH).reshape(B, KVH, G, D) / math.sqrt(D)
     qg = lsc(qg, "batch", "kv_heads", "q_group", "head_dim")
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), cache_k.float())
+    s = local_einsum("bhgd,bkhd->bhgk", qg.float(), cache_k.float())
     s = lsc(s, "batch", "kv_heads", "q_group", "kvseq")
     invalid = torch.arange(Smax, device=q.device) >= length
     s = s.masked_fill(invalid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = lsc(p, "batch", "kv_heads", "q_group", "kvseq")
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(cache_v.dtype), cache_v)
+    out = local_einsum("bhgk,bkhd->bhgd", p.to(cache_v.dtype), cache_v)
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -223,7 +273,7 @@ def decode_attention_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     cv = lsc(cv, "batch", "kvseq", "kv_heads", "head_dim")
     qg = _grouped(q, KVH).reshape(B, KVH, G, D) / math.sqrt(D)
     qg = lsc(qg, "batch", "kv_heads", "q_group", "head_dim")
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), ck.float())
+    s = local_einsum("bhgd,bkhd->bhgk", qg.float(), ck.float())
     s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
     s = lsc(s, "batch", "kv_heads", "q_group", "kvseq")
     invalid = torch.arange(Smax, device=q.device) >= length
@@ -231,7 +281,7 @@ def decode_attention_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     p = p * v_scale.float().transpose(1, 2)[:, :, None, :]
     p = lsc(p, "batch", "kv_heads", "q_group", "kvseq")
-    out = torch.einsum("bhgk,bkhd->bhgd", p, cv.float())
+    out = local_einsum("bhgk,bkhd->bhgd", p, cv.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -298,7 +348,13 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                                          cache_pos, causal, impl, kv_block)
     H, D = out.shape[2], out.shape[3]
     out = lsc(out, "batch", _attn_seq_axis(out.shape), "heads", "head_dim")
-    y = out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
+    wo = p["wo"]
+    if isinstance(wo, DTensor) and _sharded(wo, 1) and not _sharded(wo, 0):
+        # the 'head_dim' fallback: flattened head-dim-major, as in _proj
+        y = matmul(out.transpose(2, 3).reshape(B, S, D * H),
+                   wo.transpose(0, 1).reshape(D * H, -1))
+    else:
+        y = matmul(out.reshape(B, S, H * D), wo.reshape(H * D, -1))
     return lsc(y, "batch", "rseq", "embed"), new_cache
 
 

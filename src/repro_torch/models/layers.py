@@ -10,7 +10,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
-from ..parallel.sharding import lsc
+from ..parallel.sharding import local_einsum, lsc, matmul
 from .params import P
 
 
@@ -92,18 +92,18 @@ def mlp_params(cfg: ModelConfig) -> dict:
 def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; so does this port.
     if kind in ("swiglu", "geglu"):
-        g = x @ p["wi_gate"]
-        u = x @ p["wi_up"]
+        g = matmul(x, p["wi_gate"])
+        u = matmul(x, p["wi_up"])
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * u
     else:
-        h = x @ p["wi"]
+        h = matmul(x, p["wi"])
         if kind == "sq_relu":
             h = F.relu(h).square()
         else:
             h = F.gelu(h, approximate="tanh")
     h = lsc(h, "batch", "rseq", "mlp")
-    return h @ p["wo"]
+    return matmul(h, p["wo"])
 
 
 # ----------------------------------------------------------------- embedding
@@ -129,7 +129,13 @@ def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 
 def logits_from_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    out = x @ (p["table"].T if cfg.tie_embeddings else p["head"])
+    if cfg.tie_embeddings and isinstance(x, DTensor):
+        # the table's two gradients (the lookup's, the head's) must meet in
+        # placements torch 2.11's DTensor can add: the head's is summed
+        # over 'data' here (``local_einsum``) instead of left a partial sum
+        out = local_einsum("bsd,vd->bsv", x, p["table"])
+    else:
+        out = matmul(x, p["table"].T if cfg.tie_embeddings else p["head"])
     return lsc(out, "batch", "rseq", "vocab")
 
 

@@ -24,9 +24,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..parallel.sharding import lsc
+from ..parallel.sharding import local_map, lsc, matmul
 from .params import P
 
 
@@ -80,6 +81,48 @@ def route(expert_idx: torch.Tensor, C: int, E: int):
     return order, st, dest, keep, src[:, :E * C]
 
 
+def _dispatch(xpad: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Each dispatch slot's token row: (G, T+1, d) by (G, E*C) -> (G, E*C,
+    d).  Group by group, so on a mesh each rank dispatches its own groups
+    (``local_map``)."""
+    return torch.gather(xpad, 1, src[..., None].expand(-1, -1,
+                                                       xpad.shape[-1]))
+
+
+def _combine(ys_flat, dest, gate_vals, order, keep, st) -> torch.Tensor:
+    """Each assignment's expert output (0 where dropped), weighted by its
+    gate, added into its token: (G, T, d).  Group by group, as
+    ``_dispatch``."""
+    G, T, k = gate_vals.shape
+    d = ys_flat.shape[-1]
+    rows = torch.gather(ys_flat, 1, dest[..., None].expand(-1, -1, d))
+    w = torch.gather(gate_vals.reshape(G, T * k), 1, order) * keep
+    rows = rows * w[..., None].to(ys_flat.dtype)
+    tok = (st + T * torch.arange(G, device=st.device)[:, None]).reshape(-1)
+    out = ys_flat.new_zeros(G * T, d).index_add_(0, tok,
+                                                 rows.reshape(G * T * k, d))
+    return out.reshape(G, T, d)
+
+
+def _route_groups(expert_idx: torch.Tensor, C: int, E: int):
+    """``route`` on a mesh: each rank routes its own groups, whose tokens it
+    gathers first (DTensor has no strategy for ``searchsorted``, and the
+    routing reads a group's assignments whole).  The results (integers, no
+    gradient) stay sharded over the groups as ``expert_idx`` is."""
+    if not isinstance(expert_idx, DTensor):
+        return route(expert_idx, C, E)
+    mesh = expert_idx.device_mesh
+    pl = [Shard(0) if p.is_shard(0) else Replicate()
+          for p in expert_idx.placements]
+    local = expert_idx.redistribute(mesh, pl).to_local()
+    G, T, k = expert_idx.shape
+    shapes = [(G, T * k)] * 4 + [(G, E * C)]
+    return tuple(
+        DTensor.from_local(t, mesh, pl, run_check=False,
+                           shape=torch.Size(shp), stride=(shp[1], 1))
+        for t, shp in zip(route(local, C, E), shapes))
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, train: bool,
               dropped: Optional[list] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,7 +137,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, train: bool,
     G, T, _ = xg.shape
     C = capacity(T, cfg)
 
-    logits = xg @ p["router"].to(xg.dtype)
+    logits = matmul(xg, p["router"].to(xg.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)   # (G, T, k)
     if k > 1:
@@ -107,11 +150,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, train: bool,
     fe = chosen.float().mean(dim=(0, 1))
     aux = E * (me * fe).sum() * m.aux_loss_coef
 
-    order, st, dest, keep, src = route(expert_idx, C, E)
+    order, st, dest, keep, src = _route_groups(expert_idx, C, E)
     if dropped is not None:
         dropped.append((~keep).sum())
     xpad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
-    dispatched = torch.gather(xpad, 1, src[..., None].expand(-1, -1, d))
+    dispatched = local_map("gTd,gs->gsd", _dispatch, xpad, src)
     dispatched = lsc(dispatched.reshape(G, E, C, d), "batch", "experts",
                      "capacity", "embed")
 
@@ -131,21 +174,15 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, train: bool,
     ys = torch.bmm(h, p["wo"]).reshape(E, G, C, d).transpose(0, 1)
     ys = lsc(ys, "batch", "experts", "capacity", "embed")
 
-    # combine: each assignment's expert output (0 where dropped), weighted by
-    # its gate, added into its token
     ys_flat = torch.cat([ys.reshape(G, E * C, d), ys.new_zeros(G, 1, d)], 1)
-    rows = torch.gather(ys_flat, 1, dest[..., None].expand(-1, -1, d))
-    w = torch.gather(gate_vals.reshape(G, T * k), 1, order) * keep
-    rows = rows * w[..., None].to(ys.dtype)
-    tok = (st + T * torch.arange(G, device=x.device)[:, None]).reshape(-1)
-    out = ys.new_zeros(G * T, d).index_add_(0, tok, rows.reshape(G * T * k, d))
-    out = out.reshape(G, T, d)
+    out = local_map("gSd,gA,gTk,gA,gA,gA->gTd", _combine, ys_flat, dest,
+                    gate_vals, order, keep, st)
 
     if m.n_shared_experts:
-        g = xg @ p["shared_wi_gate"]
-        u = xg @ p["shared_wi_up"]
+        g = matmul(xg, p["shared_wi_gate"])
+        u = matmul(xg, p["shared_wi_up"])
         act = F.silu(g) if cfg.mlp_kind == "swiglu" \
             else F.gelu(g, approximate="tanh")
-        out = out + (act * u) @ p["shared_wo"]
+        out = out + matmul(act * u, p["shared_wo"])
 
     return out.reshape(B, S, d), aux

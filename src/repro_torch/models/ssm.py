@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..device import resolve
 from ..kernels import ops as kops
-from ..parallel.sharding import lsc
+from ..parallel.sharding import local_einsum, local_map, lsc, matmul
 from .layers import rms_norm_gated
 from .params import P
 
@@ -116,34 +116,42 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # ---- intra-chunk (quadratic within chunk)
     Lmat = torch.exp(_segsum(cs.transpose(-1, -2)))       # (B,nc,H,Q,Q)
-    scores = torch.einsum("bcigs,bcjgs->bcgij", Cc.float(), Bc.float())
+    scores = local_einsum("bcigs,bcjgs->bcgij", Cc.float(), Bc.float())
     scores = scores.repeat_interleave(hpg, dim=2)         # (B,nc,H,Q,Q)
     M = scores * Lmat * dtc.transpose(-1, -2)[..., None, :]
-    y_diag = torch.einsum("bchij,bcjhp->bcihp", M.to(dtype), xc)
+    y_diag = local_einsum("bchij,bcjhp->bcihp", M.to(dtype), xc)
 
     # ---- per-chunk end states: sum_j exp(cs_last - cs_j) dt_j B_j (x) x_j
     decay_st = torch.exp(cs[:, :, -1:, :] - cs) * dtc     # (B,nc,Q,H)
     Bh = Bc.repeat_interleave(hpg, dim=3)                 # (B,nc,Q,H,N)
-    S_c = torch.einsum("bcjhn,bcjhp->bchpn",
+    S_c = local_einsum("bcjhn,bcjhp->bchpn",
                        decay_st.to(dtype)[..., None] * Bh.to(dtype), xc)
 
     # ---- inter-chunk recurrence over nc (linear), in x's dtype
     gamma = torch.exp(cs[:, :, -1, :]).to(dtype)          # (B,nc,H)
     carry = (torch.zeros((Bsz, H, Pd, N), dtype=dtype, device=x.device)
              if initial_state is None else initial_state.to(dtype))
-    prev = []                                             # state ENTERING chunk
-    for c in range(nc):
-        prev.append(carry)
-        carry = carry * gamma[:, c, :, None, None] + S_c[:, c]
-    prev_states = torch.stack(prev, dim=1)                # (B,nc,H,P,N)
+    # on a mesh the loop runs on each rank's shards (elementwise over batch
+    # and heads): no DTensor dispatch an op and chunk
+    prev_states, carry = local_map("bch,bchpn,bhpn->bchpn,bhpn", _recurrence,
+                                   gamma, S_c, carry)
 
     # ---- inter-chunk contribution: exp(cs_i) * C_i . prev_state
     Ch = Cc.repeat_interleave(hpg, dim=3)                 # (B,nc,Q,H,N)
-    y_off = torch.einsum("bcihn,bchpn->bcihp", Ch.to(dtype), prev_states)
+    y_off = local_einsum("bcihn,bchpn->bcihp", Ch.to(dtype), prev_states)
     y_off = y_off * torch.exp(cs)[..., None].to(dtype)
 
     y = (y_diag + y_off).reshape(Bsz, Lp, H, Pd)[:, :L]
     return y, carry
+
+
+def _recurrence(gamma, S_c, carry):
+    """The states entering each chunk (B,nc,H,P,N) and the final one."""
+    prev = []
+    for c in range(S_c.shape[1]):
+        prev.append(carry)
+        carry = carry * gamma[:, c, :, None, None] + S_c[:, c]
+    return torch.stack(prev, dim=1), carry
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -158,7 +166,7 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     Ch = Cm.repeat_interleave(hpg, dim=1).float()
     upd = (dtf[..., None] * Bh)[:, :, None, :] * x.float()[..., None]
     new_state = state.float() * dA[..., None, None] + upd  # (B,H,P,N)
-    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    y = local_einsum("bhpn,bhn->bhp", new_state, Ch)
     return y.to(x.dtype), new_state.to(state.dtype)
 
 
@@ -185,11 +193,11 @@ def apply_mamba(p: dict, x_in: torch.Tensor, cfg: ModelConfig, *, mode: str,
     nh = s.n_heads(d)
     G, N, Pd = s.n_groups, s.d_state, s.head_dim
 
-    z = x_in @ p["wz"]
-    xr = x_in @ p["wx"]
-    Br = x_in @ p["wB"]
-    Cr = x_in @ p["wC"]
-    dt_raw = x_in @ p["wdt"]
+    z = matmul(x_in, p["wz"])
+    xr = matmul(x_in, p["wx"])
+    Br = matmul(x_in, p["wB"])
+    Cr = matmul(x_in, p["wC"])
+    dt_raw = matmul(x_in, p["wdt"])
     xr = lsc(xr, "batch", "seq", "inner")
 
     cx = cache.get("conv_x") if cache else None
@@ -237,7 +245,7 @@ def apply_mamba(p: dict, x_in: torch.Tensor, cfg: ModelConfig, *, mode: str,
     y = y + xh * p["D"].to(y.dtype)[:, None]
     y = y.reshape(Bsz, S, di)
     y = rms_norm_gated(y, p["norm"], z)
-    return lsc(y @ p["out_proj"], "batch", "rseq", "embed"), new_cache
+    return lsc(matmul(y, p["out_proj"]), "batch", "rseq", "embed"), new_cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -261,6 +261,159 @@ def lsc_param(x, *axes):
     return _constrain(x, rules.param_placements(axes, x.shape))
 
 
+# ------------------------------------------------- products on local shards
+def _einsum_letters(ins, out, xs, mesh) -> Optional[list]:
+    """The letter each mesh dim shards: the first lower-case one that an
+    operand (the first DTensor operand first) shards there and the outputs
+    hold; None where none does (an operand sharded there on a letter the
+    outputs lack is gathered).  None for all where an operand holds a
+    partial sum."""
+    first = next(i for i, x in enumerate(xs) if isinstance(x, DTensor))
+    order = [first] + [i for i in range(len(xs)) if i != first]
+    letters = []
+    for m in range(mesh.ndim):
+        pick = None
+        for i in order:
+            x = xs[i]
+            pl = x.placements[m] if isinstance(x, DTensor) else Replicate()
+            if pl.is_partial():
+                return None
+            if not pl.is_shard():
+                continue
+            L = ins[i][pl.dim % len(ins[i])]
+            if L in out and L.islower():
+                pick = L
+                break
+        letters.append(pick)
+    return letters
+
+
+def local_map(spec: str, fn, *xs):
+    """``fn(*xs)`` run on each rank's shards, for a ``fn`` that is local in
+    every lower-case letter of ``spec`` ("ij,j->ij": one letter a dim of
+    each operand, then of each output) that appears in an output; an
+    upper-case letter is a dim ``fn`` reads whole (gathered).
+
+    Each operand is redistributed so that a mesh dim shards the same letter
+    in all of them (replicated where an operand lacks it: a broadcast), the
+    first DTensor operand's letters first; ``fn`` runs on the local tensors
+    and its outputs become DTensors sharded on those letters.  The gradient
+    of an operand broadcast over a sharded letter is all-reduced over that
+    mesh dim (``sum_grad``).  An operand sharded on a letter no output has
+    (a contracted one) is gathered on that mesh dim.  Plain tensors count
+    as replicated.  Without a DTensor, or where an operand holds a partial
+    sum, this is ``fn(*xs)`` on the operands as they are.  The layout
+    decides, never the torch version."""
+    if not any(isinstance(x, DTensor) for x in xs):
+        return fn(*xs)
+    ins, outs = spec.replace(" ", "").split("->")
+    ins, outs = ins.split(","), outs.split(",")
+    mesh = next(x for x in xs if isinstance(x, DTensor)).device_mesh
+    letters = _einsum_letters(ins, "".join(outs), xs, mesh)
+    sizes = {}
+    for sp, x in zip(ins, xs):
+        for L, n in zip(sp, x.shape):
+            if sizes.setdefault(L, n) != n:
+                letters = None             # a broadcast dim of size 1
+    if letters is None:
+        return fn(*xs)
+    locals_ = []
+    for sp, x in zip(ins, xs):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = tuple(Shard(sp.index(L)) if L is not None and L in sp
+                     else Replicate() for L in letters)
+        local = _constrain(x, want).to_local()
+        locals_.append(sum_grad(local, mesh, [
+            m for m, L in enumerate(letters) if L is not None and L not in sp]))
+    ys = fn(*locals_)
+    wrapped = []
+    for sp, y in zip(outs, ys if len(outs) > 1 else (ys,)):
+        shape = tuple(sizes[L] for L in sp)
+        # the global stride in the local result's dim order (an einsum may
+        # return a permuted view)
+        stride, acc = [0] * len(shape), 1
+        for d in sorted(range(len(shape)), key=lambda d: (y.stride(d), d)):
+            stride[d] = acc
+            acc *= shape[d]
+        wrapped.append(DTensor.from_local(
+            y, mesh, [Shard(sp.index(L)) if L is not None else Replicate()
+                      for L in letters],
+            run_check=False, shape=torch.Size(shape), stride=tuple(stride)))
+    return tuple(wrapped) if len(outs) > 1 else wrapped[0]
+
+
+def local_einsum(eq: str, *xs):
+    """``torch.einsum(eq, *xs)`` on each rank's shards (``local_map``): the
+    output's letters keep their shards, a sharded contracted letter is
+    gathered.
+
+    DTensor's einsum flattens the batch letters into one ``bmm`` dim, and
+    torch 2.11 refuses to flatten dims of which a later one is sharded (a
+    batch on 'data' beside heads on 'model', as the SSD scan's products
+    have); 2.13 makes it a strided shard (and gathers it piece by piece)."""
+    if any(isinstance(x, DTensor) for x in xs):
+        ins, out = eq.replace(" ", "").split("->")
+        ins = ins.split(",")
+        mesh = next(x for x in xs if isinstance(x, DTensor)).device_mesh
+        letters = _einsum_letters(ins, out, xs, mesh) or []
+        for m, L in enumerate(letters):
+            if L is None and any(
+                    isinstance(x, DTensor) and x.placements[m].is_shard()
+                    for x in xs):
+                # only a contracted letter is sharded there: DTensor's
+                # einsum sums partial products, where gathering would move
+                # the operands whole
+                return torch.einsum(eq, *xs)
+    return local_map(eq, lambda *a: torch.einsum(eq, *a), *xs)
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the gradient summed over mesh dims (all-reduced)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        for m in ctx.dims:
+            g = funcol.all_reduce(g.contiguous(), "sum", (ctx.mesh, m))
+            if isinstance(g, funcol.AsyncCollectiveTensor):
+                g = g.wait()
+        return g, None, None
+
+
+def sum_grad(local: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``local``, a rank's copy of a tensor replicated over the mesh dims
+    ``dims`` that each rank reads for other elements (a broadcast operand
+    of a sharded product): its gradient is the sum of the ranks', so the
+    backward all-reduces it there and it stays replicated.  (A partial-sum
+    gradient placement instead meets sharded gradients of the same tensor,
+    which torch 2.11's DTensor cannot add.)"""
+    if not dims or not local.requires_grad:
+        return local
+    return _SumGrad.apply(local, mesh, tuple(dims))
+
+
+def matmul(x, w):
+    """``x @ w`` for ``x`` (..., K) and a weight ``w`` (K, N).  On a mesh
+    where ``x`` shards a dim after its first among those the product
+    flattens (the sequence-parallel residual: batch on 'data', sequence on
+    'model'), the product runs on each rank's rows (``local_einsum``:
+    ``w`` gathered where ``x`` shards its rows, kept sharded on N where
+    ``x`` is replicated): torch 2.11 refuses that flatten."""
+    if isinstance(x, DTensor) and x.ndim > 2 and any(
+            p.is_shard() and 0 < p.dim % x.ndim < x.ndim - 1
+            for p in x.placements):
+        rows = "abcdefghij"[:x.ndim - 1]
+        return local_einsum(f"{rows}k,kn->{rows}n", x, w)
+    return x @ w
+
+
 # ------------------------------------------- strategies older torch lacks
 def _pointwise_strategy(n_tensors: int, skip):
     """A register_sharding function for an op whose first ``n_tensors``

@@ -125,9 +125,10 @@ def train_cases(rank, world, tmp, cases):
 
 
 def serve_cases(rank, world, tmp, cases):
-    """For each (arch, tree file, prompts, new tokens, max_seq): greedy
-    tokens of ``ServeEngine(rules=)`` on a (1, world) mesh, through the
-    flash op (K3's sharding strategy) and the SSD kernel ops."""
+    """For each (name, arch, tree file, prompts, new tokens, max_seq,
+    attention): greedy tokens of ``ServeEngine(rules=)`` on a (1, world)
+    mesh, through the flash op (K3's sharding strategy) or the blocked
+    attention, and the SSD kernel ops."""
     from repro_torch.configs import ARCHS, reduced_config
     from repro_torch.models.lm import build_model
     from repro_torch.parallel.sharding import make_rules
@@ -135,12 +136,12 @@ def serve_cases(rank, world, tmp, cases):
 
     rules = make_rules(submesh([list(range(world))]))
     out = {}
-    for arch, tree_file, prompts, new, max_seq in cases:
+    for name, arch, tree_file, prompts, new, max_seq, attn in cases:
         cfg = reduced_config(ARCHS[arch])
-        model = build_model(cfg, attn_impl="flash", ssd_impl="kernel")
+        model = build_model(cfg, attn_impl=attn, ssd_impl="kernel")
         eng = ServeEngine(model, _params(tree_file, cfg), max_seq=max_seq,
                           device="cpu", rules=rules)
-        out[arch] = eng.generate(prompts, max_new_tokens=new)
+        out[name] = eng.generate(prompts, max_new_tokens=new)
     return out
 
 

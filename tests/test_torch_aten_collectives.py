@@ -5,14 +5,20 @@ The reference side: a ``jax.shard_map`` over a (2, 4) ("data", "model")
 mesh of 8 forced host devices, holding a tiled ``all_gather`` on 'model'
 (axis 1), a ``psum_scatter`` on 'model' (axis 1), a ``psum`` on 'data' and
 a tiled ``all_to_all`` on 'model', on a (64, 256) f32 input placed
-P("data", "model"); compiled in a subprocess (the device count is fixed at
+P("data", "model"), and a resharding from P("model", None) to P(None,
+"model") (an ``all_to_all`` of split axis 1, concat axis 0); compiled in a
+subprocess (the device count is fixed at
 JAX's start) and parsed by ``repro.core.hlo.parse_program``.  f32 on both
 sides: XLA on the CPU widens bf16 collectives to f32.  The port side: the
 same collectives through ``torch.distributed._functional_collectives`` on a
 (2, 4) ``DeviceMesh`` over torch's fake process group of 8 ranks, captured
 by ``core.aten.capture`` and parsed by ``core.aten.parse_graph``.  Both
 give the same (opcode, comm_bytes, group_size) list and the same
-collective time per kind under ``cost.cost_program`` on ``TPU_V5E``.
+collective time per kind under ``cost.cost_program`` on ``TPU_V5E``.  The
+resharding's port side is a DTensor Shard(0) -> Shard(1) redistribution
+captured as ``launch.cell.Cell.capture`` captures it
+(``cell.capture_on_mesh``): one all-to-all of the local shard, as a CUDA
+mesh issues it, and no all-gather (a CPU mesh's own fallback).
 """
 import json
 import os
@@ -50,24 +56,38 @@ def body(x):
     r = jax.lax.psum(s, "data")
     return jax.lax.all_to_all(r, "model", 0, 0, tiled=True)
 
+def rows_of(f, x):
+    prog = parse_program(jax.jit(f).lower(x).compile().as_text())
+    times = cost.cost_program(prog, TPU_V5E)
+    return [(o.opcode, o.comm_bytes, o.group_size, t.t_ici)
+            for o, t in zip(prog.ops, times) if o.opclass == "collective"]
+
 f = jax.shard_map(body, mesh=mesh, in_specs=P("data", "model"),
                   out_specs=P("data", "model"))
 x = jax.ShapeDtypeStruct((64, 256), jnp.float32)
-prog = parse_program(jax.jit(f).lower(x).compile().as_text())
-times = cost.cost_program(prog, TPU_V5E)
-rows = [(o.opcode, o.comm_bytes, o.group_size, t.t_ici)
-        for o, t in zip(prog.ops, times) if o.opclass == "collective"]
-print(json.dumps(rows))
+rows = rows_of(f, x)
+
+# a Shard(0) -> Shard(1) resharding on 'model': one all-to-all
+reshard = jax.shard_map(
+    lambda x: jax.lax.all_to_all(x, "model", 1, 0, tiled=True), mesh=mesh,
+    in_specs=P("model", None), out_specs=P(None, "model"))
+print(json.dumps({"rows": rows, "reshard": rows_of(reshard, x)}))
 """
 
 
 @pytest.fixture(scope="module")
-def reference_rows():
+def reference_parse():
     proc = subprocess.run([sys.executable, "-c", REFERENCE],
                           capture_output=True, text=True, timeout=240,
                           env={**os.environ, "PYTHONPATH": str(SRC)})
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return [tuple(r) for r in json.loads(proc.stdout.splitlines()[-1])]
+    out = json.loads(proc.stdout.splitlines()[-1])
+    return {k: [tuple(r) for r in v] for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def reference_rows(reference_parse):
+    return reference_parse["rows"]
 
 
 @pytest.fixture
@@ -179,3 +199,33 @@ def test_a_collective_without_its_group_size_raises(mesh):
         n.meta.pop("group_size", None)
     with pytest.raises(NotImplementedError, match="no group size"):
         aten.parse_graph(gm)
+
+
+def _reshard(mesh, capture):
+    """A (64, 256) f32 tensor sharded on 'model' along dim 0, resharded
+    along dim 1: the parsed collectives."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def body(x):
+        d = DTensor.from_local(x, mesh, [Replicate(), Shard(0)],
+                               run_check=False)
+        return d.redistribute(mesh, [Replicate(), Shard(1)]).to_local()
+
+    gm = capture(body, torch.randn(16, 256))
+    return [(o.opcode, o.comm_bytes, o.group_size)
+            for o in aten.parse_graph(gm).ops if o.opclass == "collective"]
+
+
+def test_a_reshard_is_one_all_to_all_as_the_reference_parses_it(
+        mesh, reference_parse):
+    from repro_torch.launch.cell import capture_on_mesh
+    got = _reshard(mesh, capture_on_mesh)
+    assert got == [("all-to-all", 16 * 256 * 4, 4)]
+    assert [r[:3] for r in reference_parse["reshard"]] == got
+
+
+def test_the_cpu_mesh_alone_would_gather(mesh):
+    """Without ``capture_on_mesh``, the CPU mesh's fallback: an all-gather
+    of the local shard (what the capture used to charge)."""
+    got = _reshard(mesh, aten.capture)
+    assert [k for k, *_ in got] == ["all-gather"]

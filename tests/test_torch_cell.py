@@ -307,9 +307,9 @@ def _collectives(shape, dtype, before, after, sizes=(2, 2)):
     """The collectives one redistribution issues, mesh dims from the
     innermost out, as DTensor orders them: Shard -> Replicate an
     all-gather of the local shard, Partial -> Replicate an all-reduce,
-    Partial -> Shard a reduce-scatter, Shard(a) -> Shard(b) an all-to-all,
-    which torch's CPU process group issues as an all-gather of the local
-    shard; Replicate -> Shard only slices."""
+    Partial -> Shard a reduce-scatter, Shard(a) -> Shard(b) an all-to-all
+    of the local shard (as a CUDA mesh issues it; ``Cell.capture`` traces
+    it so on the CPU mesh too); Replicate -> Shard only slices."""
     before, after = before.split(), after.split()
     local = list(shape)
     for n, p in zip(sizes, before):
@@ -322,7 +322,8 @@ def _collectives(shape, dtype, before, after, sizes=(2, 2)):
             continue
         nbytes = math.prod(local) * ITEMSIZE[dtype]
         if a[0] == "S":
-            out.append(("all-gather", nbytes, n))
+            out.append(("all-to-all" if b[0] == "S" else "all-gather",
+                        nbytes, n))
             local[int(a[1:])] *= n
         elif a == "P":
             out.append(("all-reduce" if b == "R" else "reduce-scatter",

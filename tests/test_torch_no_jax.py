@@ -50,6 +50,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.train.grad_compress"} <= names
     # slice 14: cells on the production meshes, the SSD kernels' bounds
     assert {"repro_torch.launch.cell", "repro_torch.kernels.bounds"} <= names
+    # slice 15: the dry-run and its analysis
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.analyze"} <= names
 
 
 TOOLS = sorted((SRC.parent / "tools").glob("*_torch.py"))
@@ -73,7 +75,29 @@ def test_every_port_tool_is_covered():
     assert {t.stem for t in TOOLS} >= {
         "sched_throughput_torch", "kernel_suite_torch", "triad_torch",
         "model_zoo_torch", "sampled_estimation_torch", "dse_sweep_torch",
-        "serving_sweep_torch"}
+        "serving_sweep_torch", "cluster_scaling_torch",
+        "ssd_kernel_cost_torch", "cell_capture_torch",
+        "roofline_table_torch", "run_torch", "experiments_md_torch"}
+    assert {e.stem for e in EXAMPLES} >= {
+        "quickstart_torch", "serve_lm_torch", "train_lm_torch",
+        "simulate_app_torch"}
+
+
+EXAMPLES = sorted((SRC.parent / "examples").glob("*_torch.py"))
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=[e.stem for e in EXAMPLES])
+def test_the_port_examples_load_no_jax_and_no_repro(example):
+    """Each port example (``examples/*_torch.py``) loads with only ``src``
+    on the path, and loads neither JAX nor ``repro``."""
+    code = (f"import runpy, sys; runpy.run_path({str(example)!r}, "
+            "run_name='example'); bad = sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.fixture

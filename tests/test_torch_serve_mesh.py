@@ -3,7 +3,9 @@ reference's unsharded ``ServeEngine`` (exact).
 
 Reduced chatglm3-6b (flash attention: the port's ``flash_attention``
 custom op under its DTensor sharding strategy, the reference's Pallas
-kernel in interpret mode) and mamba2-1.3b (the SSD kernel ops; the
+kernel in interpret mode; and blocked attention, whose prefill splits 4
+query heads over 1 KV head on 'model': each rank attends with its own
+heads) and mamba2-1.3b (the SSD kernel ops; the
 reference's Pallas scan in interpret mode), the same perturbed parameters,
 prompts of several lengths.  One spawn of two gloo ranks serves both on a
 (1, 2) mesh: the parameters split on 'model' where their dims divide, the
@@ -20,7 +22,10 @@ from repro.models.lm import build_model as j_build
 from repro.serve.engine import ServeEngine as JServeEngine
 
 CASES = {"chatglm3-6b": dict(attn_impl="flash"),
-         "mamba2-1.3b": dict(ssd_impl="pallas")}
+         "mamba2-1.3b": dict(ssd_impl="pallas"),
+         # the blocked attention's prefill: 4 query heads over 1 KV head,
+         # the heads split on 'model', each rank attending with its own
+         "chatglm3-6b-blocked": dict(attn_impl="blocked")}
 MAX_SEQ, NEW_TOKENS, LENGTHS = 32, 5, (2, 7, 13)
 
 
@@ -37,12 +42,13 @@ def served(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("serve_mesh")
     rng = np.random.default_rng(3)
     cases, want = [], {}
-    for arch, kw in CASES.items():
+    for name, kw in CASES.items():
+        arch = name.removesuffix("-blocked")
         jcfg = j_reduced(JARCHS[arch])
         tree = _tree(jcfg)
         prompts = [[int(t) for t in rng.integers(0, jcfg.vocab_size, n)]
                    for n in LENGTHS]
-        want[arch] = JServeEngine(j_build(jcfg, **kw), tree,
+        want[name] = JServeEngine(j_build(jcfg, **kw), tree,
                                   max_seq=MAX_SEQ).generate(
             prompts, max_new_tokens=NEW_TOKENS)
         flat = {}
@@ -54,9 +60,10 @@ def served(tmp_path_factory):
                 else:
                     flat[f"{prefix}{k}"] = v
         walk(tree, "")
-        tree_file = tmp / f"{arch}.npz"
+        tree_file = tmp / f"{name}.npz"
         np.savez(tree_file, **flat)
-        cases.append((arch, tree_file, prompts, NEW_TOKENS, MAX_SEQ))
+        cases.append((name, arch, tree_file, prompts, NEW_TOKENS, MAX_SEQ,
+                      kw.get("attn_impl", "flash")))
     got = spawn(serve_cases, 2, tmp, cases)
     return got, want
 

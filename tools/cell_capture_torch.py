@@ -18,63 +18,30 @@ opcode and the ten ops that move the most, and the simulated step time.
 ``--reduced`` takes the architecture's reduced widths and depth instead,
 and ``--mesh DxM`` a (data, model) mesh of D x M fake ranks (for tests:
 the reduced widths do not split over the production mesh's 16-way model
-axis).  The mesh is a CPU one: a fake group runs nothing, and a CPU mesh's
-all-to-all is an all-gather.
+axis).  The mesh is a CPU one: a fake group runs nothing, and the
+capture traces a Shard(a) -> Shard(b) redistribution as the all-to-all a
+CUDA mesh issues (``launch.cell.capture_on_mesh``).  The capture itself is
+``launch.dryrun.capture``, the dry-run's.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
-import os
 import sys
-import threading
 import time
-import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-import torch.distributed as dist  # noqa: E402
-
-from repro_torch.configs import ARCHS, reduced_config  # noqa: E402
 from repro_torch.core.aten import parse_graph  # noqa: E402
 from repro_torch.core.hwspec import H100  # noqa: E402
 from repro_torch.core.simulate import simulate  # noqa: E402
-from repro_torch.launch.cell import build_cell, model_flops_for  # noqa: E402
-from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
-                                     make_production_mesh, n_chips)
+from repro_torch.launch.cell import model_flops_for  # noqa: E402
+from repro_torch.launch.dryrun import (PeakRSS, capture,  # noqa: E402
+                                       collectives_by_kind)
 
 
 TOP_OPS = 10
-
-
-def _rss_bytes() -> int:
-    """This process's resident memory now (``/proc/self/statm``)."""
-    pages = int(Path("/proc/self/statm").read_text().split()[1])
-    return pages * os.sysconf("SC_PAGE_SIZE")
-
-
-class PeakRSS:
-    """The peak of this process's resident memory while in the context,
-    sampled every 10 ms (``VmHWM`` is not in every kernel's
-    ``/proc/self/status``, and ``getrusage``'s maximum carries a forking
-    parent's over ``exec``)."""
-
-    def __enter__(self):
-        self.peak, self._stop = _rss_bytes(), threading.Event()
-        self._thread = threading.Thread(target=self._sample, daemon=True)
-        self._thread.start()
-        return self
-
-    def _sample(self):
-        while not self._stop.wait(0.01):
-            self.peak = max(self.peak, _rss_bytes())
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        self._thread.join()
-        self.peak = max(self.peak, _rss_bytes())
 
 
 def capture_cell(arch: str, shape: str, multi_pod: bool = False,
@@ -88,57 +55,29 @@ def capture_cell(arch: str, shape: str, multi_pod: bool = False,
 
 
 def _capture_cell(arch, shape, multi_pod, reduced, mesh_shape) -> dict:
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    world = (mesh_shape[0] * mesh_shape[1] if mesh_shape
-             else 512 if multi_pod else 256)
-    t0 = time.perf_counter()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=world)
-    try:
-        mesh = (make_host_mesh(*mesh_shape, device_type="cpu") if mesh_shape
-                else make_production_mesh(multi_pod=multi_pod,
-                                          device_type="cpu"))
-        mesh_s = time.perf_counter() - t0
-        over = None
-        if reduced:
-            red = reduced_config(ARCHS[arch])
-            over = {f.name: getattr(red, f.name)
-                    for f in dataclasses.fields(red) if f.name != "name"}
-        cell = build_cell(arch, shape, mesh, model_overrides=over)
-        t0 = time.perf_counter()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            gm = cell.capture()
-        capture_s = time.perf_counter() - t0
-    finally:
-        dist.destroy_process_group()
+    cap = capture(arch, shape, multi_pod=multi_pod, mesh_shape=mesh_shape,
+                  reduced=reduced)
+    cell, gm, chips = cap["cell"], cap["gm"], cap["n_chips"]
     t0 = time.perf_counter()
     prog = parse_graph(gm)
     parse_s = time.perf_counter() - t0
-    chips = n_chips(mesh)
     t0 = time.perf_counter()
     rep = simulate(prog, hw=H100, n_chips=chips,
                    model_flops_global=model_flops_for(cell.run.model,
                                                       cell.shape))
     simulate_s = time.perf_counter() - t0
-    coll, by_opcode = {}, {}
+    by_opcode = {}
     for o in prog.ops:
         by_opcode[o.opcode] = by_opcode.get(o.opcode, 0.0) \
             + o.bytes_accessed * o.count
-        if o.opclass == "collective":
-            c = coll.setdefault(f"{o.opcode} x{o.group_size}",
-                                {"count": 0, "bytes": 0.0})
-            c["count"] += 1
-            c["bytes"] += o.comm_bytes * o.count
-    return {"cell": cell.name, "mesh": dict(zip(mesh.mesh_dim_names,
-                                                mesh.shape)),
+    return {"cell": cell.name, "mesh": cap["mesh"],
             "n_chips": chips, "reduced": reduced,
-            "mesh_s": mesh_s, "capture_s": capture_s, "parse_s": parse_s,
-            "simulate_s": simulate_s,
+            "mesh_s": cap["mesh_s"], "capture_s": cap["capture_s"],
+            "parse_s": parse_s, "simulate_s": simulate_s,
             "graph_nodes": len(gm.graph.nodes), "ops": len(prog.ops),
             "flops": prog.flops, "bytes": prog.bytes_accessed,
-            "comm_bytes": prog.comm_bytes, "collectives": coll,
+            "comm_bytes": prog.comm_bytes,
+            "collectives": collectives_by_kind(prog),
             "bytes_by_opcode": by_opcode,
             "top_ops": [{"name": o.name, "opcode": o.opcode, "dtype": o.dtype,
                          "bytes": o.bytes_accessed, "comm_bytes": o.comm_bytes}
