@@ -212,8 +212,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     reference's ``--quick``) and its full run on the host, with the ranks
     and plan taus against ``BENCH_cluster.json``;
 31. ``examples/train_lm_torch.py`` at ``--size 100m`` and the reference
-    example's defaults but **200 steps** (of 8 x 256 tokens, microbatch 4,
-    f32, checkpoints every 25 steps, a failure injected at step 100): one
+    example's defaults but **150 steps** (of 8 x 256 tokens, microbatch 4,
+    f32, checkpoints every 25 steps, a failure injected at step 75): one
     restart, the loss falling by more than 0.5, step ms, tokens/s, a
     checkpoint's save and restore seconds; the resumed losses from the
     restored step to the step after the fault equal to an uninterrupted
@@ -231,12 +231,14 @@ Phases, in order; any failure exits non-zero and prints no result:
     simulated: capture and parse seconds, peak resident memory (host
     numbers), graph nodes, ops, collective bytes by kind and group size,
     the ops that move the most, t_est on ``H100``;
-34. ``python -m repro_torch.launch.dryrun --jobs 2`` on chatglm3-6b
-    prefill_32k and mamba2-1.3b decode_32k (the fake (16, 16) mesh) and
-    ``launch.analyze`` on phase 33's cell, started after phase 31 and run
-    beside phases 32-33 and ``[mem]``; each cell's capture seconds, peak
-    resident memory, peak
-    bytes a rank, collectives by kind and dominant term;
+34. ``python -m repro_torch.launch.dryrun --jobs 3`` on chatglm3-6b
+    prefill_32k, mamba2-1.3b decode_32k and nemotron-4-340b train_4k (the
+    fake (16, 16) mesh; the loop-aware capture counts nemotron's 8
+    microbatches x 96 layers) and ``launch.analyze`` on phase 33's cell,
+    started after phase 31 and run beside phases 32-33 and ``[mem]``; each
+    cell's capture seconds, peak resident memory, graph nodes, ops and
+    their counts, peak bytes a rank, collectives by kind and dominant
+    term;
     ``tools/roofline_table_torch.py`` on the artifacts; a Shard(0) ->
     Shard(1) redistribution captured as one all-to-all (``[dryrun]``
     lines); then ``[mem]``: ``core.aten.memory_analysis``'s output + temp
@@ -2116,9 +2118,10 @@ def meshes_on_card(dev, check_kernels) -> dict:
 
 # phase 31: examples/train_lm_torch.py at --size 100m
 TRAIN_LM_LOSS_RTOL = 1e-5
-# the reference example's 300 steps cut to 200 (the fault at step 100):
-# phase 34 needs the time the script's limit leaves
-TRAIN_LM_STEPS = 200
+# the reference example's 300 steps cut to 150 (the fault at step 75):
+# phase 34 needs the time the script's limit leaves (200 steps: 1142 s of
+# the 1200 s on one card's machine)
+TRAIN_LM_STEPS = 150
 
 
 def load_example(name: str):
@@ -2461,7 +2464,11 @@ def cell_on_production_meshes(tmp: Path, procs: dict) -> dict:
 
 # phase 34: the dry-run, its analysis and tables; the memory analysis
 DRYRUN_CELLS = (("chatglm3-6b", "prefill_32k"),      # repair (b)
-                ("mamba2-1.3b", "decode_32k"))       # repair (c)
+                ("mamba2-1.3b", "decode_32k"),       # repair (c)
+                ("nemotron-4-340b", "train_4k"))     # the loop-aware capture
+# nemotron-4-340b train_4k: 8 microbatches of 96 layers; on a mesh the
+# last layer's backward is traced on its own (core.aten.repeat)
+DEEP_CELL, DEEP_MICRO, DEEP_LAYERS = "nemotron-4-340b/train_4k", 8, 96
 DRYRUN_TIMEOUT_S = 600
 MEM_RATIO = (0.5, 1.05)
 RESHARD_PROBE = r"""
@@ -2487,13 +2494,13 @@ dist.destroy_process_group()
 def start_dryrun(tmp: Path) -> dict:
     """Phase 34's processes, started after phase 31 (host work, one torch
     thread each, beside phases 32-33 and the memory check): the dry-run CLI
-    on ``DRYRUN_CELLS`` (single pod, ``--jobs 2``) and ``launch.analyze``
+    on ``DRYRUN_CELLS`` (single pod, ``--jobs 3``) and ``launch.analyze``
     on phase 33's cell."""
     import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
     cmds = {"dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--mesh", "single", "--jobs", "2", "--force",
+                       "--mesh", "single", "--jobs", "3", "--force",
                        "--out", str(tmp / "dryrun"),
                        *(x for a, s_ in DRYRUN_CELLS
                          for x in ("--cell", f"{a}/{s_}"))],
@@ -2513,10 +2520,12 @@ def dryrun_phase(tmp: Path, procs: dict) -> dict:
     """Phase 34, the dry-run and what reads it (host numbers of the card's
     machine; modelled terms, not card times): ``python -m
     repro_torch.launch.dryrun`` on chatglm3-6b prefill_32k (its heads split
-    per rank, repair b) and mamba2-1.3b decode_32k (its batched products on
-    local shards, repair c) on the fake (16, 16) mesh, each cell's capture
-    seconds, peak resident memory, peak bytes a rank, collectives by kind
-    and dominant term; ``launch.analyze`` on phase 33's cell;
+    per rank, repair b), mamba2-1.3b decode_32k (its batched products on
+    local shards, repair c) and nemotron-4-340b train_4k (the deepest cell,
+    whose loop-aware capture must count its 8 microbatches x 96 layers) on
+    the fake (16, 16) mesh, each cell's capture seconds, peak resident
+    memory, graph nodes, ops and their counts, peak bytes a rank,
+    collectives by kind and dominant term; ``launch.analyze`` on phase 33's cell;
     ``tools/roofline_table_torch.py`` on the artifacts; and repair (a)'s
     probe on this torch: a Shard(0) -> Shard(1) redistribution captured as
     ``Cell.capture`` captures it is one all-to-all of the local shard."""
@@ -2555,12 +2564,15 @@ def dryrun_phase(tmp: Path, procs: dict) -> dict:
             "peak_gib_a_rank": mem["peak_bytes_est"] / 2**30,
             "memory_analysis": mem, "collectives": r["collectives"],
             "roofline": rf, "fits_hbm": r["fits_hbm"],
-            "graph_nodes": r["graph_nodes"]}
+            "graph_nodes": r["graph_nodes"], "ops": r["ops"],
+            "op_instances": r["op_instances"], "op_counts": r["op_counts"]}
         print(f"[dryrun] {arch} {shape} single_pod ({r['n_chips']} fake "
               f"ranks; host numbers): capture {r['t_lower_s']:.2f} s, parse "
               f"+ simulate {r['t_compile_s']:.2f} s, peak RSS "
               f"{r['peak_rss_bytes'] / 2**30:.2f} GiB, {r['graph_nodes']} "
-              f"graph nodes; peak {mem['peak_bytes_est'] / 2**30:.2f} GiB a "
+              f"graph nodes, {r['ops']} ops, {r['op_instances']:.0f} op "
+              f"instances (ops by count {r['op_counts']}); peak "
+              f"{mem['peak_bytes_est'] / 2**30:.2f} GiB a "
               f"rank (arguments {mem['argument_bytes'] / 2**30:.2f}, temp "
               f"{mem['temp_bytes'] / 2**30:.2f}, fits "
               f"{r['hbm_per_chip'] / 1e9:.0f} GB: {r['fits_hbm']}); "
@@ -2573,6 +2585,18 @@ def dryrun_phase(tmp: Path, procs: dict) -> dict:
         if not (r["roofline"]["dominant"] and r["collectives"]
                 and mem["peak_bytes_est"] > 0):
             fail(f"phase 34: {arch} {shape}'s artifact {r}")
+    deep = cells[DEEP_CELL]
+    body = str(DEEP_MICRO * (DEEP_LAYERS - 1))
+    print(f"[dryrun] {DEEP_CELL}: the layer loop's body counts "
+          f"{DEEP_MICRO} x {DEEP_LAYERS - 1} = {body} "
+          f"({deep['op_counts'].get(body, 0)} ops) and the last layer "
+          f"{DEEP_MICRO}: {DEEP_MICRO} x {DEEP_LAYERS} layer instances, "
+          f"captured in {deep['capture_s']:.2f} s of the "
+          f"{DRYRUN_TIMEOUT_S} s allowed")
+    if not (deep["op_counts"].get(body) and str(DEEP_MICRO) in
+            deep["op_counts"] and deep["capture_s"] < DRYRUN_TIMEOUT_S):
+        fail(f"phase 34: {DEEP_CELL}'s counts {deep['op_counts']}, "
+             f"captured in {deep['capture_s']} s")
     analyze = out["analyze"]["log"]
     for key in ("== PA report", "memory_analysis: {", "== top 10 ops",
                 "== op-count histogram"):

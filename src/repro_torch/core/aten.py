@@ -63,8 +63,24 @@ under DESIGN.md §9's rules restated for eager ATen:
   ``index_put_``, ``scatter_``, ``index_add_``, as into a cache or the MoE
   combine) costs the updated region, read and written; later readers of
   the buffer depend on it.
-* **I-4 has nothing to do:** Python loops (the layers, ``ops.ssd_scan``'s
-  chunk recurrence) arrive unrolled, every op with count 1.
+* **I-4, as the reference's rule: a loop's body counts once, times its
+  trips.**  ``repeat`` is the port's ``lax.scan``.  Eager, and in the
+  default capture, it runs its Python loop and every op has count 1.  In a
+  loop-aware capture (``capture(..., loops=True)``) it traces the body once,
+  on iteration 0's slice, and tags every node traced for it, the nodes of
+  the body's backward included, with the loop's trips
+  (``node.meta["loop"]``: ``(loop id, trips)`` pairs, outermost first); an
+  op's count is the product of its tags, so a layer inside the
+  microbatch loop counts ``n_micro x n_layers``.  The layers' parameter
+  slices are views read in the body (I-2); their gradient is the stack of
+  the n layers' slices, written once (n slices read and written, as the
+  unrolled capture's and as n dynamic-update-slices of one slice each).  A
+  stacked output is the stack of the one iteration's output n times, the
+  bytes of the unrolled stack.  A tensor the body reads unchanged on every
+  iteration (``consts``) has its gradient summed n - 1 times, as autograd
+  sums the unrolled layers' contributions.  Loops this module does not
+  see (``ops.ssd_scan``'s chunk recurrence, the blocked attention's KV
+  blocks) arrive unrolled.
 * **I-5 does not hold in eager.**  A ``_to_copy`` feeding a ``mm`` is a
   kernel that writes the cast copy, and is charged.
 * **The kernels' custom ops** are ``OpStat(opcode="custom-call",
@@ -92,11 +108,14 @@ under DESIGN.md §9's rules restated for eager ATen:
 """
 from __future__ import annotations
 
+import collections
+import functools
 import math
 import operator
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .hlo import OpStat, Program, _classify
@@ -203,14 +222,361 @@ def decompositions() -> Dict[Any, Callable]:
             if _packet(op) not in COMPOSITES}
 
 
-def capture(fn: Callable, *args) -> torch.fx.GraphModule:
+def capture(fn: Callable, *args, loops: bool = False) -> torch.fx.GraphModule:
     """``fn(*args)`` as one ATen graph, traced over fake tensors: no kernel
     runs and no tensor of the step is allocated.  ``args`` may be real
-    tensors or fake ones (made under a ``FakeTensorMode``), in pytrees."""
+    tensors or fake ones (made under a ``FakeTensorMode``), in pytrees.
+
+    With ``loops`` each ``repeat`` in ``fn`` is traced once and tagged with
+    its trips (I-4).  Its values are then not the step's, so ``args`` must
+    be fake or ``meta`` tensors; a tensor with storage raises."""
+    if loops:
+        from torch._subclasses.fake_tensor import FakeTensor
+        for t in pytree.tree_leaves(args):
+            if isinstance(t, torch.Tensor) and not (
+                    isinstance(t, FakeTensor) or t.is_meta):
+                raise ValueError(
+                    "core.aten.capture(loops=True) traces each loop's body "
+                    "once, so its values are not the step's: pass fake or "
+                    "meta tensors, not tensors with storage")
+        fn = _loop_aware(fn)
     gm = make_fx(fn, tracing_mode="fake",
                  decomposition_table=decompositions())(*args)
     record_group_sizes(gm)
     return gm
+
+
+# ------------------------------------------------------------ loops (I-4)
+_LOOPS: Optional["_LoopCapture"] = None
+
+
+def _loop_aware(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def traced(*args):
+        global _LOOPS
+        from torch.fx.experimental.proxy_tensor import get_proxy_mode
+        _LOOPS = st = _LoopCapture(get_proxy_mode().tracer.graph)
+        try:
+            return fn(*args)
+        finally:
+            _LOOPS = None
+            st.finish()
+    return traced
+
+
+class _LoopCapture:
+    """Which loops the nodes being traced belong to.  ``tag`` stamps the
+    nodes traced since its last call with the current ``loops`` (loop ids,
+    outermost first) and ``bwd`` (the loop whose backward is being
+    traced); the state changes only through ``enter``, which tags first.
+    A loop's trips are settled after its body is traced (``trips``);
+    ``finish`` writes them into the nodes, ``node.meta["loop"]`` = ((loop
+    id, trips), ...), and drops the loops of one trip (an iteration traced
+    on its own)."""
+
+    def __init__(self, graph: torch.fx.Graph):
+        self.graph = graph
+        self.cursor = graph._root.prev       # the last node traced so far
+        self.loops: tuple = ()
+        self.bwd: Optional[int] = None
+        self.trips: Dict[int, int] = {}
+        self.saved: Optional[tuple] = None   # (loops, bwd) a backward began at
+
+    def new_loop(self, trips: int) -> int:
+        self.trips[len(self.trips)] = trips
+        return len(self.trips) - 1
+
+    def tag(self, **meta) -> None:
+        node = self.cursor.next
+        while node is not self.graph._root:
+            if self.loops:
+                node.meta["loop"] = self.loops
+            if self.bwd is not None:
+                node.meta["loop_bwd"] = self.bwd
+            node.meta.update(meta)
+            self.cursor, node = node, node.next
+
+    def enter(self, loops: tuple, bwd: Optional[int]) -> None:
+        self.tag()
+        self.loops, self.bwd = loops, bwd
+
+    def backward_hook(self, loops: tuple, bwd: Optional[int]):
+        """A grad_fn's pre-hook: its backward, and the sums of the gradients
+        it passes on, belong to the loops its forward ran in.  The state a
+        backward pass began with returns when the pass ends."""
+        def hook(grad_outputs):
+            if self.saved is None:
+                self.saved = (self.loops, self.bwd)
+                torch.autograd.Variable._execution_engine.queue_callback(
+                    self._end_backward)
+            self.enter(loops, bwd)
+        return hook
+
+    def _end_backward(self) -> None:
+        self.enter(*self.saved)
+        self.saved = None
+
+    def finish(self) -> None:
+        self.tag()
+        for node in self.graph.nodes:
+            loops = tuple((lid, self.trips[lid])
+                          for lid in node.meta.pop("loop", ())
+                          if self.trips[lid] > 1)
+            if loops:
+                node.meta["loop"] = loops
+            if self.trips.get(node.meta.get("loop_bwd"), 2) == 1:
+                del node.meta["loop_bwd"]
+            if self.trips.get(node.meta.get("loop_carry"), 2) == 1:
+                del node.meta["loop_carry"]
+
+
+class _Slice(torch.autograd.Function):
+    """A stacked leaf's slices at ``picks`` (iterations 0, 1 and n - 1:
+    three views whatever n), views (the scan's dynamic-slice, I-2), one
+    for each traced body; ``plan`` lists (pick, loop) for the bodies in
+    order.  The gradient is the stack of the n iterations' slices, each
+    body's as often as it stands for an iteration (n slices read and
+    written), as ``unbind``'s backward stacks the unrolled layers'."""
+
+    @staticmethod
+    def forward(ctx, a, picks, plan):
+        ctx.plan = plan
+        ctx.set_materialize_grads(False)
+        return tuple(a.select(0, j) for j in picks)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ts = [gs[k] for k, lid in ctx.plan
+              for _ in range(_LOOPS.trips[lid])]
+        if all(g is None for g in ts):
+            return None, None, None
+        return _stack_loop(ts), None, None
+
+
+class _Mark(torch.autograd.Function):
+    """A loop's carry as it enters the body: a view, so that
+    ``memory_analysis`` can find the carry a body's backward reads."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Invariant(torch.autograd.Function):
+    """A tensor every iteration of a body reads unchanged: its gradient is
+    summed over the iterations the body stands for, trips - 1 adds, as
+    autograd sums the unrolled iterations' contributions."""
+
+    @staticmethod
+    def forward(ctx, x, lid):
+        ctx.lid = lid
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        st = _LOOPS
+        if st.trips[ctx.lid] > 1:
+            outer = st.loops
+            st.enter(outer + (st.new_loop(st.trips[ctx.lid] - 1),), st.bwd)
+            g = g + g
+            st.enter(outer, st.bwd)
+        return g, None
+
+
+def _stack_loop(ts: list) -> torch.Tensor:
+    """``torch.stack(ts)`` of a collapsed loop's iterations, which repeat
+    the body's tensor: marked so that ``memory_analysis`` counts each
+    tensor as often as the stack reads it."""
+    _LOOPS.tag()
+    out = torch.stack(ts)
+    _LOOPS.tag(loop_stack=True)
+    return out
+
+
+def stack(ts: list) -> torch.Tensor:
+    """``torch.stack(ts)``; a ``repeat``'s ys of a loop-aware capture hold
+    the body's value for each iteration it stands for."""
+    if _LOOPS is not None and len(set(map(id, ts))) < len(ts):
+        return _stack_loop(ts)
+    return torch.stack(ts)
+
+
+def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
+           consts: tuple = ()):
+    """``lax.scan`` of the port: ``carry, y = body(carry, i, *xs_i,
+    *views_i, *consts)`` for i in range(n); returns (carry, [y_0, ...]).
+
+    ``xs`` are pytrees of leaves stacked on dim 0 that the body reads
+    (parameters): iteration i gets each leaf's ``unbind(0)[i]``.  ``views``
+    are pytrees stacked likewise that the body may write in place (a
+    decode cache): iteration i gets ``leaf[i]``.  ``consts`` are passed to
+    every iteration as they are.
+
+    In a loop-aware capture the body is traced once and stands for the
+    iterations whose ops are the same, as a scan's body.  Iteration 0 is
+    traced on its own where the carry it returns differs from the one it
+    took (in layout, in needing a gradient, a Python number become a
+    tensor), as unrolled, and the body stands for the others.  In training
+    on a mesh the last iteration is traced on its own too: its backward
+    receives the gradient from outside the loop, which DTensor
+    redistributes at the last layer's uses when its layout is not the one
+    the body's backward passes on (mamba2's carry: (Shard(0), Replicate())
+    from the final norm, (Shard(0), Shard(0)) between the layers), where
+    the reference's partitioner reshards it once before its loop.  The ys
+    hold each traced body's y as often as it stands for an iteration
+    (``stack`` stacks them).  A tensor that needs a gradient and that the
+    body reads must come in through ``carry``, ``xs`` or ``consts``, or
+    the capture raises."""
+    st = _LOOPS
+    if st is None or n <= 1:
+        unbound = []
+        for tree in xs:
+            leaves, spec = pytree.tree_flatten(tree)
+            unbound.append((spec, [a.unbind(0) for a in leaves]))
+        ys = []
+        for i in range(n):
+            args = [pytree.tree_unflatten([u[i] for u in us], spec)
+                    for spec, us in unbound]
+            args += [_index(v, i) for v in views]
+            carry, y = body(carry, i, *args, *consts)
+            ys.append(y)
+        return carry, ys
+
+    picks = (0, 1, n - 1)        # the iterations traced: see below
+    plan: list = []
+    slices = []
+    for tree in xs:
+        leaves, spec = pytree.tree_flatten(tree)
+        outs = [_Slice.apply(a, picks, plan) for a in leaves]
+        slices.append([pytree.tree_unflatten([o[k] for o in outs], spec)
+                       for k in range(len(picks))])
+    base = (st.loops, st.bwd)
+
+    def trace(k: int, carry) -> dict:
+        """``body`` traced for iteration ``picks[k]``, as a loop whose trips
+        are settled later."""
+        i = picks[k]
+        lid = st.new_loop(n)
+        args = [s[k] for s in slices] + [_index(v, i) for v in views]
+        args += [_Invariant.apply(c, lid) if isinstance(c, torch.Tensor)
+                 and c.requires_grad else c for c in consts]
+        st.enter(base[0] + (lid,), base[1])
+        start = torch._C._autograd._get_sequence_nr()
+        carry_in = pytree.tree_map(
+            lambda t: _Mark.apply(t) if isinstance(t, torch.Tensor)
+            and t.requires_grad else t, carry)
+        st.tag(loop_carry=lid)
+        out, y = body(carry_in, i, *args)
+        st.enter(*base)
+        return {"k": k, "lid": lid, "start": start, "carry_in": carry,
+                "carry": out, "y": y}
+
+    def settle(seg: dict, trips: int) -> list:
+        st.trips[seg["lid"]] = trips
+        plan.append((seg["k"], seg["lid"]))
+        if torch.is_grad_enabled():
+            loops, bwd = ((base[0] + (seg["lid"],), seg["lid"]) if trips > 1
+                          else base)
+            _hook_body(st, (seg["carry"], seg["y"]), seg["start"], loops,
+                       bwd, base)
+        return [seg["y"]] * trips
+
+    seg = trace(0, carry)
+    ys = []
+    if _signature(seg["carry"]) != _signature(carry):
+        ys += settle(seg, 1)
+        seg = trace(1, seg["carry"])
+    rest = n - picks[seg["k"]]
+    last = rest > 1 and torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        and hasattr(t, "placements") for t in pytree.tree_leaves(seg["carry"]))
+    trips = rest - 1 if last else rest
+    if trips > 1 and _signature(seg["carry"]) != _signature(seg["carry_in"]):
+        raise NotImplementedError(
+            "core.aten.repeat: the carry changes on more than one iteration")
+    ys += settle(seg, trips)
+    if last:
+        seg = trace(2, seg["carry"])
+        ys += settle(seg, 1)
+    return seg["carry"], ys
+
+
+def _signature(carry) -> list:
+    """What a body's ops depend on in its carry, besides the values."""
+    out = [pytree.tree_structure(carry)]
+    for t in pytree.tree_leaves(carry):
+        if isinstance(t, torch.Tensor):
+            local = getattr(t, "_local_tensor", t)     # a DTensor's shard
+            out.append((type(t), tuple(t.shape), t.dtype, t.requires_grad,
+                        tuple(getattr(t, "placements", ())), local.stride()))
+        else:
+            out.append(type(t))
+    return out
+
+
+def _index(tree, i: int):
+    return pytree.tree_map(lambda a: a[i], tree, is_leaf=lambda a: a is None
+                           ) if tree is not None else None
+
+
+_BOUNDARY = ("_SliceBackward", "_InvariantBackward")
+
+
+def _hook_body(st: _LoopCapture, outputs, start: int, loops: tuple,
+               bwd: Optional[int], base: tuple) -> None:
+    """Pre-hooks on the grad_fns a traced body made (sequence number
+    ``start`` or later, reached from its outputs): their backward belongs
+    to ``loops``; and on the grad_fns the body's inputs came from: the
+    backward after the body's belongs to the loops around it, ``base``."""
+    todo = [t.grad_fn for t in pytree.tree_leaves(outputs)
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None
+            and t.grad_fn._sequence_nr() >= start]
+    seen = set()
+    while todo:
+        fn = todo.pop()
+        if fn in seen:
+            continue
+        seen.add(fn)
+        fn.register_prehook(st.backward_hook(loops, bwd))
+        for nxt, _ in fn.next_functions:
+            if nxt is None or nxt in seen:
+                continue
+            if nxt._sequence_nr() >= start and "AccumulateGrad" not in \
+                    nxt.name():
+                todo.append(nxt)
+                continue
+            if fn.name() != "_MarkBackward" and nxt.name() not in _BOUNDARY:
+                raise NotImplementedError(
+                    f"core.aten.repeat: the body reads a tensor that needs a "
+                    f"gradient from outside ({nxt.name()} into {fn.name()}); "
+                    "pass it in through carry, xs or consts")
+            seen.add(nxt)
+            nxt.register_prehook(st.backward_hook(*base))
+
+
+def drop_dead_writes(gm: torch.fx.GraphModule) -> None:
+    """Erase the in-place writes into an allocation that nothing reads, and
+    the allocation: dead stores, which ``eliminate_dead_code`` keeps as
+    side effects.  Torch 2.11's DTensor leaves them: it propagates an
+    in-place op's sharding by running it on empty tensors of the global
+    shape, once an op signature (its cache is cold in a new process)."""
+    for node in list(gm.graph.nodes):
+        if node.op != "call_function" or not isinstance(
+                node.target, torch._ops.OpOverload) \
+                or _packet(node.target) not in ALLOCS:
+            continue
+        writes = list(node.users)
+        if writes and all(not w.users and w.args and w.args[0] is node
+                          and isinstance(w.target, torch._ops.OpOverload)
+                          and _packet(w.target).endswith("_")
+                          for w in writes):
+            for w in writes:
+                gm.graph.erase_node(w)
+    gm.graph.eliminate_dead_code()
 
 
 def _is_collective(target) -> bool:
@@ -271,6 +637,11 @@ def _conv_flops(args, out: torch.Tensor) -> float:
     w = args[1]
     out_ch = out.shape[1] if out.dim() > 1 else 1
     return 2.0 * out.numel() * max(1, w.numel() // max(out_ch, 1))
+
+
+def trips(node: torch.fx.Node) -> int:
+    """A node's count: the product of its loops' trips (I-4)."""
+    return math.prod(n for _, n in node.meta.get("loop", ()))
 
 
 def parse_graph(gm: torch.fx.GraphModule) -> Program:
@@ -381,7 +752,8 @@ def parse_graph(gm: torch.fx.GraphModule) -> Program:
 
         stat = OpStat(node.name, opcode, cls, dtype,
                       bytes_accessed=in_b + out_b, read_bytes=in_b,
-                      write_bytes=out_b, deps=deps, dep_bytes=dep_b)
+                      write_bytes=out_b, deps=deps, dep_bytes=dep_b,
+                      count=float(trips(node)))
         nelems = float(max(1, outs[0].numel()))
         if opcode == "fusion":
             parts = COMPOSITES[name]
@@ -450,8 +822,56 @@ def _aliases_operand(node) -> bool:
             and _classify(OPCODES[name[:-1]]) == "elementwise")
 
 
-def memory_analysis(gm: torch.fx.GraphModule,
-                    donated=None) -> Dict[str, float]:
+def _loop_copies(nodes: list, base: Dict[str, str],
+                 last: Dict[str, int]) -> Dict[str, Tuple[int, int]]:
+    """The buffers of a loop-aware capture that stand for one an iteration:
+    buffer -> (copies, the node index the copies of the other iterations
+    are live from).
+
+    * An input of a collapsed loop's stack (its stacked outputs, the
+      gradient slices of its stacked parameters): as many copies as the
+      stack reads it; the other iterations' are live from the start of the
+      body's forward or backward that made it, as unrolled.
+    * A buffer that a body's forward makes, or takes as its carry, and
+      that the body's backward reads last (what the remat'ed layers save,
+      which the reference's scan stacks ``[n, ...]``): the loop's trips,
+      live from the buffer's own node."""
+    index = {n.name: i for i, n in enumerate(nodes)}
+    begins: Dict[tuple, int] = {}       # (loop, backward?) -> first node
+    carry: Dict[str, int] = {}          # buffer -> the loop it enters
+    made: Dict[str, tuple] = {}         # buffer -> the loops its node ran in
+    stacked: Dict[str, int] = {}
+    for i, node in enumerate(nodes):
+        bwd = node.meta.get("loop_bwd")
+        for lid, _ in node.meta.get("loop", ()):
+            begins.setdefault((lid, lid == bwd), i)
+        if "loop_carry" in node.meta:
+            carry[base.get(node.name, node.name)] = node.meta["loop_carry"]
+        if base.get(node.name) == node.name and "loop" in node.meta:
+            made[node.name] = tuple(lid for lid, _ in node.meta["loop"]
+                                    if lid != bwd)
+        if node.meta.get("loop_stack") and base.get(node.name) == node.name:
+            reads = collections.Counter(
+                base.get(a.name, a.name) for a in pytree.tree_leaves(
+                    node.args) if isinstance(a, torch.fx.Node))
+            for b, k in reads.items():
+                stacked[b] = max(stacked.get(b, 1), k)
+    out: Dict[str, Tuple[int, int]] = {}
+    for b, k in stacked.items():
+        maker = nodes[index[b]]
+        if k > 1 and "loop" in maker.meta:
+            lid = maker.meta["loop"][-1][0]
+            out[b] = (k, begins[(lid, maker.meta.get("loop_bwd") == lid)])
+    for b, j in last.items():
+        lid = nodes[j].meta.get("loop_bwd")
+        if lid is not None and b not in out and (
+                carry.get(b) == lid or lid in made.get(b, ())):
+            out[b] = (dict(nodes[j].meta["loop"])[lid], index[b])
+    return out
+
+
+def memory_analysis(gm: torch.fx.GraphModule, donated=None,
+                    top: int = 0) -> Dict[str, Any]:
     """One rank's memory for a captured graph, with the reference's keys
     (``repro.core.simulate`` reads them from XLA's ``memory_analysis``):
 
@@ -470,7 +890,13 @@ def memory_analysis(gm: torch.fx.GraphModule,
 
     ``donated`` holds the indices of the donated placeholders; by default
     those whose ``node.meta["donated"]`` is set (``launch.cell.Cell.capture``
-    marks the arguments of ``donate_argnums`` so)."""
+    marks the arguments of ``donate_argnums`` so).
+
+    In a loop-aware capture a buffer that the unrolled graph holds once an
+    iteration counts that many times (``_loop_copies``); a temporary inside
+    one iteration counts once.  With ``top``, ``live_at_peak`` lists the
+    ``top`` largest temporaries live at the peak: (node, op, shape, dtype,
+    bytes held)."""
     nodes = list(gm.graph.nodes)
     base: Dict[str, str] = {}
     size: Dict[str, float] = {}
@@ -499,14 +925,24 @@ def memory_analysis(gm: torch.fx.GraphModule,
             returned.append(a)
     out_bufs = {base.get(a.name, a.name) for a in returned}
     args = {n.name for n in inputs}
+    index = {n.name: i for i, n in enumerate(nodes)}
+    copies = {b: kc for b, kc in _loop_copies(nodes, base, last).items()
+              if b not in args and b not in out_bufs}
+    early: Dict[int, float] = {}        # the other iterations' copies
+    for b, (k, i) in copies.items():
+        early[i] = early.get(i, 0.0) + size[b] * (k - 1)
     frees: Dict[int, float] = {}
     temp = peak = 0.0
+    at = 0
     for i, node in enumerate(nodes):
         b = node.name
+        temp += early.pop(i, 0.0)
         if base.get(b) == b and b not in args and b not in out_bufs:
             temp += size[b]
-            peak = max(peak, temp)
-            frees[last[b]] = frees.get(last[b], 0.0) + size[b]
+            frees[last[b]] = frees.get(last[b], 0.0) \
+                + size[b] * copies.get(b, (1, i))[0]
+        if temp > peak:
+            peak, at = temp, i
         temp -= frees.pop(i, 0.0)
     arg_b = sum(_nbytes(n.meta.get("val")) for n in inputs)
     out_b = sum(_nbytes(a.meta.get("val")) for a in returned)
@@ -519,6 +955,20 @@ def memory_analysis(gm: torch.fx.GraphModule,
             if key in free_outs:
                 free_outs.remove(key)
                 alias += t.numel() * t.element_size()
-    return {"argument_bytes": arg_b, "output_bytes": out_b,
-            "temp_bytes": peak, "alias_bytes": alias,
-            "peak_bytes_est": arg_b + out_b + peak - alias}
+    out = {"argument_bytes": arg_b, "output_bytes": out_b,
+           "temp_bytes": peak, "alias_bytes": alias,
+           "peak_bytes_est": arg_b + out_b + peak - alias}
+    if top:
+        live = [(size[n.name] * (copies[n.name][0] if index[n.name] <= at
+                                 else copies[n.name][0] - 1)
+                 if n.name in copies else size[n.name], n)
+                for n in nodes if base.get(n.name) == n.name
+                and n.name not in args and n.name not in out_bufs
+                and last[n.name] >= at and min(
+                    index[n.name], copies.get(n.name, (1, at + 1))[1]) <= at]
+        out["live_at_peak"] = [
+            (n.name, str(n.target), [list(t.shape) for t in
+                                     _tensors(n.meta.get("val"))],
+             [_dtype(t) for t in _tensors(n.meta.get("val"))], held)
+            for held, n in sorted(live, key=lambda x: -x[0])[:top]]
+    return out

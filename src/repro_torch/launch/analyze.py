@@ -10,8 +10,10 @@ The cell is the dry-run's (``launch.dryrun.capture``: the full-width
 cell on the fake production mesh, captured by ``Cell.capture``), in a
 process of its own for torch's fake process group.  Prints the PA report
 of ``simulate`` on the ``H100`` spec, the capture's
-``core.aten.memory_analysis``, the top ops by modelled time in the
-reference's columns, and the op-count histogram.  ``--dump-graph``
+``core.aten.memory_analysis`` and the temporaries live at its peak, the
+top ops by modelled time in the reference's columns, and the op-count
+histogram (the loop-aware capture's counts: a loop's ops carry its
+trips).  ``--dump-graph``
 writes the capture's code (``gm.code``) where the reference writes its
 HLO.  ``--reduced --mesh-shape DxM`` take the reduced widths on a (data,
 model) mesh (for tests).  Host code: nothing runs on a card.
@@ -70,7 +72,13 @@ def analyze(args) -> int:
                    title=f"{args.arch} {args.shape}")
     prog, eng = rep.program, rep.engine
     print(rep.pa)
-    print(f"\nmemory_analysis: {aten.memory_analysis(gm)}")
+    mem = aten.memory_analysis(gm, top=args.top)
+    live = mem.pop("live_at_peak")
+    print(f"\nmemory_analysis: {mem}")
+    print(f"\n== top {args.top} temporaries live at the memory peak ==")
+    for name, op, shapes, dtypes, held in live:
+        print(f"{name[:43]:<44s}{op[:30]:<31s}{held / 2**30:>9.3f} GiB  "
+              f"{shapes} {dtypes}")
 
     print(f"\n== top {args.top} ops by modeled time ==")
     print(f"{'op':<44s}{'opcode':<18s}{'count':>9s}{'GF':>8s}{'GB':>9s}"

@@ -13,7 +13,10 @@ tensor (nothing is allocated), wraps it as a DTensor of its placements on
 the cell's ``DeviceMesh`` inside the traced function, and returns
 ``core.aten.capture`` of the step, a GraphModule of one rank's ATen ops
 with the collectives that DTensor's redistributions issue, without the
-nodes that feed no output.  The mesh may
+nodes that feed no output.  The capture is loop-aware: each microbatch
+and layer loop that the reference scans is traced once and counted its
+trips (``core.aten.repeat``), as the reference's parse counts a
+``while`` body.  The mesh may
 span a fake process group (``torch.testing._internal.distributed.fake_pg``)
 of the production world (256 or 512 ranks): nothing runs, and collectives
 return tensors of the right shape without data.
@@ -111,9 +114,11 @@ class Cell:
         return float(sum(math.prod(local) * dt.itemsize
                          for local, dt, *_ in self._shards()))
 
-    def capture(self) -> torch.fx.GraphModule:
+    def capture(self, loops: bool = True) -> torch.fx.GraphModule:
         """The step as one rank's ATen graph on the cell's mesh (module
-        docstring); needs the mesh's process group."""
+        docstring); needs the mesh's process group.  Loop-aware by default,
+        as the reference's parse counts a scan's body (``core.aten``'s
+        I-4); ``loops=False`` unrolls every loop."""
         from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.distributed.tensor import DTensor
 
@@ -144,23 +149,27 @@ class Cell:
                     out = self.fn(*args)
             return _to_local(out)
 
-        gm = capture_on_mesh(step, locals_)
+        gm = capture_on_mesh(step, locals_, loops=loops)
         inputs = [n for n in gm.graph.nodes if n.op == "placeholder"]
         for node, shard in zip(inputs, shards):
             node.meta["donated"] = shard[4] in self.donate_argnums
         return gm
 
 
-def capture_on_mesh(fn: Callable, *args) -> torch.fx.GraphModule:
-    """``core.aten.capture(fn, *args)`` of a step over DTensors, as
+def capture_on_mesh(fn: Callable, *args,
+                    loops: bool = False) -> torch.fx.GraphModule:
+    """``core.aten.capture(fn, *args, loops=loops)`` of a step over
+    DTensors, as
     ``Cell.capture`` takes it: DTensor's redistributions traced as a CUDA
     mesh issues them (``_dtensor_as_on_cuda``), and without the nodes that
     feed no output, as XLA drops them (torch 2.11's DTensor propagates
     shapes by running each op on empty tensors of the global shape, which
-    the capture records beside the rank's ops)."""
+    the capture records beside the rank's ops; the in-place ones, which
+    dead-code elimination keeps, ``core.aten.drop_dead_writes`` drops)."""
     with _dtensor_as_on_cuda():
-        gm = aten.capture(fn, *args)
+        gm = aten.capture(fn, *args, loops=loops)
     gm.graph.eliminate_dead_code()
+    aten.drop_dead_writes(gm)
     gm.recompile()
     return gm
 

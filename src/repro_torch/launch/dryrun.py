@@ -28,13 +28,19 @@ the keys the reference's readers take (``fmt_row``, the roofline table,
 ``aten.memory_analysis`` of the capture (``Cell.donate_argnums`` marks the
 donated inputs); ``xla_cost_analysis`` is None.  The port adds
 ``peak_rss_bytes`` (the process's peak resident memory over the
-capture, parse and simulation) and ``collectives`` (count and bytes a
-rank by kind and group size).  All seconds are host seconds and every
+capture, parse and simulation), ``collectives`` (how often each kind
+runs and its bytes a rank, by group size), ``graph_nodes`` beside the
+Program's ``ops``, ``op_instances`` (the ops weighted by their counts)
+and ``op_counts`` (ops by count).  The capture is loop-aware
+(``core.aten``'s I-4: a microbatch or layer loop's body traced once and
+counted its trips, as the reference's parse counts a ``lax.scan``);
+``--unrolled`` unrolls every loop instead, to compare.  All seconds are host seconds and every
 term is modelled: nothing here is a time on the card.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -90,14 +96,15 @@ class PeakRSS:
 
 
 def collectives_by_kind(prog) -> dict:
-    """{"<opcode> x<group size>": {"count", "bytes"}}: a program's
-    collectives and the bytes a rank sends in each kind."""
+    """{"<opcode> x<group size>": {"count", "bytes"}}: how often a program
+    runs a collective of each kind (an op in a loop as often as its count)
+    and the bytes a rank sends in them."""
     out = {}
     for o in prog.ops:
         if o.opclass == "collective":
             c = out.setdefault(f"{o.opcode} x{o.group_size}",
                                {"count": 0, "bytes": 0.0})
-            c["count"] += 1
+            c["count"] += int(o.count)
             c["bytes"] += o.comm_bytes * o.count
     return out
 
@@ -107,13 +114,14 @@ def capture(arch: str, shape_name: str, *, multi_pod: bool = False,
             mesh_shape=None, reduced: bool = False,
             layers: Optional[int] = None,
             run_overrides: Optional[dict] = None,
-            act_rule_overrides: Optional[dict] = None) -> dict:
+            act_rule_overrides: Optional[dict] = None,
+            loops: bool = True) -> dict:
     """The cell captured on a fake production mesh (or a (data, model)
     mesh of ``mesh_shape``, for tests; ``reduced`` takes the
     architecture's reduced widths and depth, ``layers`` cuts the depth
-    alone): {"cell", "gm", "mesh",
-    "n_chips", "mesh_s", "capture_s"}.  Starts torch's fake process group
-    of the mesh's world and destroys it."""
+    alone; ``loops=False`` unrolls the loops the capture otherwise counts):
+    {"cell", "gm", "mesh", "n_chips", "mesh_s", "capture_s"}.  Starts
+    torch's fake process group of the mesh's world and destroys it."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -140,7 +148,7 @@ def capture(arch: str, shape_name: str, *, multi_pod: bool = False,
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            gm = cell.capture()
+            gm = cell.capture(loops=loops)
         capture_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -155,7 +163,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              run_overrides: Optional[dict] = None,
              act_rule_overrides: Optional[dict] = None,
              tag: str = "", reduced: bool = False,
-             mesh_shape=None, layers: Optional[int] = None) -> dict:
+             mesh_shape=None, layers: Optional[int] = None,
+             loops: bool = True) -> dict:
     """Capture, parse and simulate one cell and write its artifact (or read
     it, where it exists and not ``force``).  Needs a process without a
     process group (``main`` gives each cell one)."""
@@ -168,7 +177,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         cap = capture(arch, shape_name, multi_pod=multi_pod,
                       mesh_shape=mesh_shape, reduced=reduced, layers=layers,
                       run_overrides=run_overrides,
-                      act_rule_overrides=act_rule_overrides)
+                      act_rule_overrides=act_rule_overrides, loops=loops)
         cell, gm, chips = cap["cell"], cap["gm"], cap["n_chips"]
         t0 = time.perf_counter()
         prog = aten.parse_graph(gm)
@@ -211,6 +220,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "pa_report": rep.pa,
         "spec": H100.name,
         "graph_nodes": len(gm.graph.nodes),
+        "loops": loops,
+        "ops": len(prog.ops),
+        "op_instances": sum(o.count for o in prog.ops),
+        "op_counts": {f"{c:g}": n for c, n in sorted(collections.Counter(
+            o.count for o in prog.ops).items())},
         "peak_rss_bytes": rss.peak,
         "collectives": collectives_by_kind(prog),
     }
@@ -247,7 +261,7 @@ def _child(argv) -> int:
                  run_overrides=over.get("run"),
                  reduced=over.get("reduced", False),
                  mesh_shape=over.get("mesh_shape"),
-                 layers=over.get("layers"))
+                 layers=over.get("layers"), loops=over.get("loops", True))
     except Exception as e:  # noqa: BLE001 — the parent reports it
         traceback.print_exc()
         print(json.dumps({"error": repr(e)}), flush=True)
@@ -334,6 +348,9 @@ def main(argv=None) -> int:
                     help="seconds a cell may take before it is killed")
     ap.add_argument("--max-rss-gib", type=float, default=None,
                     help="resident GiB a cell may take before it is killed")
+    ap.add_argument("--unrolled", action="store_true",
+                    help="unroll every loop (the capture before loops were "
+                         "counted), to compare")
     args = ap.parse_args(argv)
 
     cells = all_cells()
@@ -358,6 +375,8 @@ def main(argv=None) -> int:
         over["run"] = {"microbatch": args.microbatch}
     if args.layers is not None:
         over["layers"] = args.layers
+    if args.unrolled:
+        over["loops"] = False
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     out_dir = Path(args.out)

@@ -26,9 +26,11 @@ sum its auxiliary loss; vlm (paligemma) replaces the first ``n_img_tokens``
 positions with the batch's ``img_embeds``; audio adds sinusoidal positions
 and runs the encoder over the batch's ``frames`` (self-attention without a
 mask, through ``attn_impl``: flash runs K3 non-causal there), whose output
-every decoder layer cross-attends.  ``lax.scan`` over layers becomes a
-Python loop over layer views (one ``unbind`` per stacked leaf).  In training
-with ``cfg.remat == "full"`` each layer runs under
+every decoder layer cross-attends.  ``lax.scan`` over layers becomes
+``core.aten.repeat``: a Python loop over layer views (one ``unbind`` per
+stacked leaf), whose body a loop-aware capture traces once and counts its
+trips; zamba2's hybrid stack stays a Python loop, as in the reference.  In
+training with ``cfg.remat == "full"`` each layer runs under
 ``torch.utils.checkpoint.checkpoint`` (``jax.checkpoint`` in the
 reference), so its activations are recomputed in the backward.
 """
@@ -41,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..core import aten
 from ..device import resolve
 from ..parallel.sharding import lsc, lsc_param
 from . import params as pr
@@ -288,9 +291,12 @@ class LM:
             return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h),
                                  cfg.mlp_kind)
 
+        def step(x, i, lp):
+            return self._run_layer(layer, mode, x, lp), None
+
         enc = params["encoder"]
-        for lp in layer_views(enc["layers"], cfg.n_encoder_layers):
-            x = self._run_layer(layer, mode, x, lp)
+        x, _ = aten.repeat(step, cfg.n_encoder_layers, x,
+                           xs=(enc["layers"],))
         return apply_norm(enc["final_norm"], x)
 
     def _dense_stack(self, params, x, mode: str, cache, pos: Optional[int],
@@ -303,7 +309,7 @@ class LM:
         self_keys = ("k", "v", "k_scale", "v_scale")
         layer_specs = self._dense_layer_specs()
 
-        def layer(x, lp, lc):
+        def layer(x, lp, lc, cross_x):
             lp = constrain_params(lp, layer_specs)
             sc = xc = None
             if lc is not None:
@@ -330,16 +336,20 @@ class LM:
                 f, aux = apply_mlp(lp["mlp"], f_in, cfg.mlp_kind), 0.0
             return lsc(x + f, "batch", "rseq", "embed"), aux, kv, xkv
 
-        aux_sum = 0.0
-        new = []
-        for i, lp in enumerate(layer_views(params["layers"], cfg.n_layers)):
-            x, aux, kv, xkv = self._run_layer(layer, mode, x, lp,
-                                              self._layer_cache(cache, i))
-            aux_sum = aux_sum + aux
+        def step(carry, i, lp, lc, cross_x):
+            x, aux_sum = carry
+            x, aux, kv, xkv = self._run_layer(layer, mode, x, lp, lc,
+                                              cross_x)
+            new = None
             if mode == "prefill":
-                new.append({"k": kv["k"], "v": kv["v"]})
+                new = {"k": kv["k"], "v": kv["v"]}
                 if xkv is not None:
-                    new[-1].update(xk=xkv["k"], xv=xkv["v"])
+                    new.update(xk=xkv["k"], xv=xkv["v"])
+            return (x, aux_sum + aux), new
+
+        (x, aux_sum), new = aten.repeat(
+            step, cfg.n_layers, (x, 0.0), xs=(params["layers"],),
+            views=(cache,), consts=(cross_x,))
         if mode == "prefill":
             return x, aux_sum, self._stack_layers(new)
         return x, aux_sum, cache
@@ -358,7 +368,7 @@ class LM:
 
     @staticmethod
     def _stack_layers(per_layer: list) -> dict:
-        return {k: torch.stack([c[k] for c in per_layer])
+        return {k: aten.stack([c[k] for c in per_layer])
                 for k in per_layer[0]}
 
     def _ssm_stack(self, params, x, mode: str, cache):
@@ -369,12 +379,12 @@ class LM:
                                           mode, lc)
             return lsc(x, "batch", "rseq", "embed"), new_lc
 
-        new = []
-        for i, lp in enumerate(layer_views(params["layers"],
-                                           self.cfg.n_layers)):
-            x, new_lc = self._run_layer(layer, mode, x, lp,
-                                        self._layer_cache(cache, i))
-            new.append(new_lc)
+        def step(x, i, lp, lc):
+            x, new_lc = self._run_layer(layer, mode, x, lp, lc)
+            return x, new_lc if mode == "prefill" else None
+
+        x, new = aten.repeat(step, self.cfg.n_layers, x,
+                             xs=(params["layers"],), views=(cache,))
         if mode == "prefill":
             return x, self._stack_layers(new)
         return x, cache

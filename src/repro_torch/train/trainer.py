@@ -8,7 +8,8 @@ opt_init)``, as the reference's returns its sharding trees; the step is
 
 and, as in the reference: the parameters are cast to ``run.compute_dtype``
 for the forward and backward, gradients are taken in f32, microbatches
-(``run.microbatch``) accumulate their gradients in f32 and take the mean,
+(``run.microbatch``, a ``core.aten.repeat`` loop, the reference's scan)
+accumulate their gradients in f32 and take the mean,
 then the gradients are clipped to ``run.grad_clip`` and the optimizer
 updates the parameters in their own dtype.  Metrics: ``loss``,
 ``grad_norm``, ``ce``, ``aux`` (0-d tensors).
@@ -30,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import RunConfig
+from ..core import aten
 from ..models import params as pr
 from ..models.lm import LM
 from ..parallel.sharding import MeshRules, mesh_axis_names, use_rules
@@ -136,18 +138,21 @@ def make_train_step(model: LM, run: RunConfig,
             # microbatch's gradient is reduced into them as it is added
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in leaves]
-            losses, metricses = [], []
             slices = {k: v.chunk(n_micro, dim=0) for k, v in batch.items()}
-            for i in range(n_micro):
+
+            def micro(carry, i):
                 loss, metrics, gs = grads_of(
                     leaves, cparams, {k: v[i] for k, v in slices.items()})
                 for a, g in zip(grads, gs):
                     a.add_(g.float())
-                losses.append(loss)
-                metricses.append(metrics)
+                return carry, (loss, metrics)
+
+            _, ys = aten.repeat(micro, n_micro, None)
+            losses = [loss for loss, _ in ys]
+            metricses = [m for _, m in ys]
             grads = [g / n_micro for g in grads]
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([m[k] for m in metricses]).mean()
+            loss = aten.stack(losses).mean()
+            metrics = {k: aten.stack([m[k] for m in metricses]).mean()
                        for k in metricses[0]}
         del cparams, leaves
         grads = _unflatten(params, grads)

@@ -32,9 +32,13 @@ B, S = 4, 64
 KW = dict(param_dtype="float32", compute_dtype="float32")
 
 
-def programs(arch: str, what: str):
+def programs(arch: str, what: str, microbatch: int = 0):
     """(reference Program, port Program, port GraphModule) of ``arch``'s
-    ``what`` ("train" or "prefill") step."""
+    ``what`` ("train" or "prefill") step.  With ``microbatch`` (train) the
+    step runs ``B // microbatch`` microbatches, the reference's scan and the
+    port's ``aten.repeat``, and the port's step is captured loop-aware
+    (``aten.capture(..., loops=True)``, on fake copies of the inputs), so
+    both Programs count a loop's body once, times its trips."""
     jcfg, tcfg = j_reduced(JARCHS[arch]), reduced_config(ARCHS[arch])
     jm = j_build(jcfg, ssd_impl="jnp")
     tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
@@ -50,15 +54,20 @@ def programs(arch: str, what: str):
             tbatch[name] = torch.zeros(spec.shape)
     if what == "train":
         jrun = JRunConfig(model=jcfg, shape=JShapeConfig("t", S, B, "train"),
-                          **KW)
+                          microbatch=microbatch, **KW)
         jstep, *_, jopt_init = j_make_train_step(jm, jrun, None)
         jp = jax.tree.map(jnp.asarray, tree)
         text = jax.jit(jstep).lower(jp, jopt_init(jp), jbatch).compile() \
             .as_text()
         trun = RunConfig(model=tcfg, shape=ShapeConfig("t", S, B, "train"),
-                         **KW)
+                         microbatch=microbatch, **KW)
         step, *_, opt_init = make_train_step(tm, trun)
-        gm = aten.capture(step, tp, opt_init(tp), tbatch)
+        args = (tp, opt_init(tp), tbatch)
+        if microbatch:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+            mode = FakeTensorMode()
+            args = torch.utils._pytree.tree_map(mode.from_tensor, args)
+        gm = aten.capture(step, *args, loops=bool(microbatch))
     else:
         text = jax.jit(jm.prefill_fn).lower(tree, jbatch).compile().as_text()
 

@@ -260,6 +260,41 @@ def test_capture_parse_and_simulate_at_reduced_width(arch, shape,
     assert rep.roofline.comm_bytes_per_device == prog.comm_bytes
 
 
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_the_loop_aware_capture_equals_the_unrolled_one_on_a_mesh(shape,
+                                                                 mesh_2x2):
+    """chatglm3-6b at 4 layers on the (2, 2) mesh; the train cell in 2
+    microbatches counts its layers 2 x 4 times, bar the last, which a
+    mesh's training traces on its own (``core.aten.repeat``)."""
+    from _loops import assert_loop_aware_cell_equals_unrolled, cell_at_depth
+    prog = assert_loop_aware_cell_equals_unrolled(
+        cell_at_depth("chatglm3-6b", shape, mesh_2x2))
+    counts = {o.count for o in prog.ops}
+    assert counts == ({1, 2, 2 * 3} if shape == "train_4k" else {1, 4})
+
+
+def test_dead_writes_into_allocations_are_dropped():
+    """A write into an allocation that nothing reads (torch 2.11's DTensor
+    leaves one for each in-place op signature it propagates) is a dead
+    store: ``aten.drop_dead_writes`` erases it and the allocation;
+    ``eliminate_dead_code`` keeps it, as a side effect."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core import aten
+
+    def f(x):
+        torch.empty(4, 8).add_(torch.empty(4, 8))      # read by nothing
+        kept = torch.empty(4, 8)
+        kept.copy_(x)                                  # read below
+        return kept * 2
+    gm = make_fx(f)(torch.randn(4, 8))
+    gm.graph.eliminate_dead_code()
+    assert [o.opcode for o in parse_graph(gm).ops] == ["add", "copy",
+                                                       "multiply"]
+    aten.drop_dead_writes(gm)
+    assert [o.opcode for o in parse_graph(gm).ops] == ["copy", "multiply"]
+
+
 # (global shape, dtype, placements before, after) of every redistribution
 # the reduced chatglm3-6b's decode step makes on a (2, 2) ("data", "model")
 # mesh that moves data, in terms of its widths: d, the heads H and KV heads
@@ -343,8 +378,10 @@ def test_decode_collectives_equal_a_count_by_hand(mesh_2x2):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         prog = parse_graph(c.capture())
+    # each collective as often as it runs: the capture is loop-aware, a
+    # layer's collectives are one op each, counted n_layers times
     got = sorted((o.opcode, o.comm_bytes, o.group_size) for o in prog.ops
-                 if o.opclass == "collective")
+                 if o.opclass == "collective" for _ in range(int(o.count)))
     assert len(got) == len(want) == 3 + 20 * cfg.n_layers + 4
     assert sum(b for _, b, _ in got) == sum(b for _, b, _ in want)
     assert got == want

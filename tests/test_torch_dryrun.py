@@ -11,6 +11,10 @@ readers.
   path constants patched to the artifacts; the port's header names the
   card's HBM and the parse's and simulation's seconds where the
   reference's names its chip's and its compile's).
+* The artifacts record the loop-aware capture's graph nodes, ops and
+  their counts; ``--unrolled`` captures the same cells with every loop
+  unrolled, to the same FLOPs, bytes and collective bytes, which
+  ``tools/roofline_table_torch.py --against`` puts side by side.
 * A cell that raises makes ``main`` exit 1 and list it.
 """
 import importlib.util
@@ -82,6 +86,14 @@ def test_run_cell_writes_the_reference_keys(artifacts):
                                          + mem["temp_bytes"]
                                          - mem["alias_bytes"])
         assert r["peak_rss_bytes"] > 0 and r["collectives"]
+        # the loop-aware capture: the layer loop's ops count its trips
+        assert r["loops"] is True and r["ops"] < r["graph_nodes"]
+        assert r["op_counts"] == {"1": r["op_counts"]["1"],
+                                  str(r["n_layers"]): r["op_counts"][
+                                      str(r["n_layers"])]}
+        assert r["op_instances"] == sum(float(c) * n for c, n in
+                                        r["op_counts"].items()) \
+            == sum(v["n"] for v in r["program"]["by_class"].values())
         assert sum(c["bytes"] for c in r["collectives"].values()) == \
             r["program"]["comm_bytes_per_device"]
         # a decode step donates its cache, which it returns updated
@@ -134,6 +146,51 @@ def test_the_experiments_tables_render_as_the_reference(artifacts,
         [c for i, c in enumerate(wh) if i not in (9, 10)]
     assert (gh[9].strip(), gh[10].strip()) == ("fits 80 GB", "parse+sim s")
     assert port.roofline_table() == ref.roofline_table()
+
+
+@pytest.fixture(scope="module")
+def unrolled(tmp_path_factory):
+    """The same cells captured with every loop unrolled (``--unrolled``)."""
+    out = tmp_path_factory.mktemp("dryrun_unrolled")
+    rc = dryrun.main(["--mesh", "single", "--reduced", "--mesh-shape", "2x2",
+                      "--unrolled", "--out", str(out),
+                      *(x for a, s in CELLS for x in ("--cell", f"{a}/{s}"))])
+    assert rc == 0
+    return out
+
+
+def test_the_unrolled_sweep_holds_the_same_terms(artifacts, unrolled):
+    """``--unrolled`` against the loop-aware capture: the same FLOPs, bytes
+    and collective bytes a rank, more graph nodes and ops, each op once;
+    ``tools/roofline_table_torch.py --against`` puts both sweeps' t_est
+    and terms side by side, ``--capture`` lists each capture's counts."""
+    out, rows = artifacts
+    port = _tool("roofline_table_torch")
+    old = port.load_rows("single_pod", unrolled)
+    assert [(r["arch"], r["shape"]) for r in old] == sorted(CELLS)
+    for r, o in zip(sorted(rows, key=lambda r: r["shape"]), old):
+        assert o["loops"] is False and o["op_counts"] == {"1": o["ops"]}
+        assert o["graph_nodes"] > r["graph_nodes"] and o["ops"] > r["ops"]
+        assert o["op_instances"] == r["op_instances"]
+        for key in ("flops_per_device", "bytes_per_device",
+                    "comm_bytes_per_device"):
+            assert o["program"][key] == r["program"][key], key
+        assert o["roofline"]["compute_s"] == r["roofline"]["compute_s"]
+        assert o["collectives"] == r["collectives"]
+    compare = port.fmt_compare(port.load_rows("single_pod", out),
+                               old).splitlines()
+    assert len(compare) == 2 + len(CELLS)
+    assert compare[2].startswith("| chatglm3-6b | decode_32k | single_pod "
+                                 "| ")
+    capture = port.fmt_capture(old).splitlines()
+    assert len(capture) == 2 + len(CELLS) and "| graph nodes |" in capture[0]
+    assert port.main(["--dir", str(out), "--against", str(unrolled)]) == 0
+    both = port.fmt_both(port.load_rows("single_pod", out), [],
+                         old).splitlines()
+    assert len(both) == 2 + len(CELLS) and "t_est s old / new" in both[0]
+    assert all(line.endswith("| — | — | — | — |") for line in both[2:])
+    t_old, t_new = both[2].split(" | ")[5].split(" / ")
+    assert t_old == t_new
 
 
 def test_a_cell_that_raises_is_listed_and_fails_main(tmp_path, capsys):

@@ -183,3 +183,69 @@ def test_argument_bytes_equal_the_captured_placeholders(arch, shape):
     inputs = [n for n in cap["gm"].graph.nodes if n.op == "placeholder"]
     donated = [n.meta["donated"] for n in inputs]
     assert any(donated) == (cap["cell"].kind == "decode")
+
+
+# ------------------------------------------------ the loop-aware capture
+def test_a_remat_loops_saved_carry_counts_its_trips():
+    """A layer loop under activation checkpointing, loop-aware: the carry
+    each layer saves for its backward is one buffer standing for n
+    (``_loop_copies``), so the temp bytes equal the unrolled capture's,
+    where n carries are live at once."""
+    from torch.utils.checkpoint import checkpoint
+
+    from _loops import fake
+
+    def step(w, x):
+        w = w.requires_grad_()
+
+        def body(h, i, wi):
+            return checkpoint(lambda h, wi: torch.tanh(h @ wi), h, wi,
+                              use_reentrant=False), None
+        h, _ = aten.repeat(body, 6, x @ w[0], xs=(w,))
+        return torch.autograd.grad(h.sum(), [w])
+
+    args = (torch.randn(6, 64, 64), torch.randn(32, 64))
+    unrolled = aten.capture(step, *args)
+    loops = aten.capture(step, *fake(args), loops=True)
+    mu, ml = aten.memory_analysis(unrolled), aten.memory_analysis(loops)
+    assert len(loops.graph.nodes) < len(unrolled.graph.nodes)
+    assert ml == mu
+
+
+def test_a_loops_stacked_outputs_count_each_iteration():
+    """A collapsed loop's stacked outputs (a prefill's per-layer caches):
+    the one iteration's output stands for n, live until the stack."""
+    from _loops import fake
+
+    def step(w, x):
+        def body(h, i, wi):
+            h = h @ wi
+            return h, h * 2
+        h, ys = aten.repeat(body, 5, x, xs=(w,))
+        return h, aten.stack(ys)
+
+    args = (torch.randn(5, 64, 64), torch.randn(32, 64))
+    unrolled = aten.capture(step, *args)
+    loops = aten.capture(step, *fake(args), loops=True)
+    assert aten.memory_analysis(loops) == aten.memory_analysis(unrolled)
+
+
+@pytest.mark.parametrize("arch,shape", [("mamba2-1.3b", "train_4k"),
+                                        ("whisper-large-v3", "prefill_32k")])
+def test_loop_aware_cells_equal_the_unrolled_ones(arch, shape):
+    """On a (2, 2) fake mesh at 4 layers (``test_torch_cell.py``'s
+    helpers): mamba2-1.3b's train cell, whose last layer receives its
+    gradient from the final norm in another layout than the layers pass
+    on, and whisper-large-v3's prefill, whose carry changes layout after
+    the first layer of each stack."""
+    from _loops import assert_loop_aware_cell_equals_unrolled, cell_at_depth
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        assert_loop_aware_cell_equals_unrolled(
+            cell_at_depth(arch, shape, mesh))
+    finally:
+        dist.destroy_process_group()
