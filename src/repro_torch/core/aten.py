@@ -78,9 +78,10 @@ under DESIGN.md §9's rules restated for eager ATen:
   stacked output is the stack of the one iteration's output n times, the
   bytes of the unrolled stack.  A tensor the body reads unchanged on every
   iteration (``consts``) has its gradient summed n - 1 times, as autograd
-  sums the unrolled layers' contributions.  Loops this module does not
-  see (``ops.ssd_scan``'s chunk recurrence, the blocked attention's KV
-  blocks) arrive unrolled.
+  sums the unrolled layers' contributions.  The loops inside a layer run
+  through ``repeat`` too: the blocked attention's KV blocks and the SSD
+  inter-chunk recurrence (``models.ssm._recurrence``, ``ops.ssd_scan``),
+  each counted its trips times the layers' and microbatches'.
 * **I-5 does not hold in eager.**  A ``_to_copy`` feeding a ``mm`` is a
   kernel that writes the cast copy, and is charged.
 * **The kernels' custom ops** are ``OpStat(opcode="custom-call",
@@ -145,7 +146,8 @@ OPCODES = {
     "relu": "maximum",
     "eq": "compare", "ne": "compare", "lt": "compare", "le": "compare",
     "gt": "compare", "ge": "compare", "bitwise_or": "or",
-    "logical_and": "and", "bitwise_not": "not", "_to_copy": "convert",
+    "logical_and": "and", "bitwise_and": "and", "bitwise_not": "not",
+    "_to_copy": "convert",
     "full": "broadcast", "full_like": "broadcast", "scalar_tensor": "broadcast",
     "arange": "iota",
     # transcendental
@@ -240,10 +242,19 @@ def capture(fn: Callable, *args, loops: bool = False) -> torch.fx.GraphModule:
                     "once, so its values are not the step's: pass fake or "
                     "meta tensors, not tensors with storage")
         fn = _loop_aware(fn)
-    gm = make_fx(fn, tracing_mode="fake",
-                 decomposition_table=decompositions())(*args)
+    global _CAPTURING
+    _CAPTURING, outer = True, _CAPTURING
+    try:
+        gm = make_fx(fn, tracing_mode="fake",
+                     decomposition_table=decompositions())(*args)
+    finally:
+        _CAPTURING = outer
     record_group_sizes(gm)
     return gm
+
+
+# set while ``capture`` traces (loop-aware or not)
+_CAPTURING = False
 
 
 # ------------------------------------------------------------ loops (I-4)
@@ -281,6 +292,9 @@ class _LoopCapture:
         self.bwd: Optional[int] = None
         self.trips: Dict[int, int] = {}
         self.saved: Optional[tuple] = None   # (loops, bwd) a backward began at
+        self.hooked: set = set()             # grad_fns of the bodies traced
+        self.sites: Dict[tuple, list] = {}   # body site -> forward loop ids
+        self.alias: Dict[int, int] = {}      # recomputed loop -> forward's
 
     def new_loop(self, trips: int) -> int:
         self.trips[len(self.trips)] = trips
@@ -316,10 +330,21 @@ class _LoopCapture:
         self.enter(*self.saved)
         self.saved = None
 
+    def recomputed(self, lid: int, site) -> None:
+        """Loop ``lid`` traced for ``site`` (a body's code and traced
+        iteration): in a backward it is the forward's loop of that site
+        recomputed (a remat'ed layer's), the last one not yet matched, and
+        takes its id, so that ``memory_analysis`` finds the buffers the
+        forward's loop would have saved."""
+        if self.saved is None:
+            self.sites.setdefault(site, []).append(lid)
+        elif self.sites.get(site):
+            self.alias[lid] = self.sites[site].pop()
+
     def finish(self) -> None:
         self.tag()
         for node in self.graph.nodes:
-            loops = tuple((lid, self.trips[lid])
+            loops = tuple((self.alias.get(lid, lid), self.trips[lid])
                           for lid in node.meta.pop("loop", ())
                           if self.trips[lid] > 1)
             if loops:
@@ -331,8 +356,8 @@ class _LoopCapture:
 
 
 class _Slice(torch.autograd.Function):
-    """A stacked leaf's slices at ``picks`` (iterations 0, 1 and n - 1:
-    three views whatever n), views (the scan's dynamic-slice, I-2), one
+    """A stacked leaf's slices at ``picks`` (iterations 0 and 1: two
+    views whatever n), views (the scan's dynamic-slice, I-2), one
     for each traced body; ``plan`` lists (pick, loop) for the bodies in
     order.  The gradient is the stack of the n iterations' slices, each
     body's as often as it stands for an iteration (n slices read and
@@ -355,15 +380,65 @@ class _Slice(torch.autograd.Function):
 
 class _Mark(torch.autograd.Function):
     """A loop's carry as it enters the body: a view, so that
-    ``memory_analysis`` can find the carry a body's backward reads."""
+    ``memory_analysis`` can find the carry a body's backward reads.  On a
+    mesh (a DTensor carry, ``slot`` a dict) the gradient the body passes
+    back for it is redistributed to the layout in which the gradient of
+    the body's returned carry arrived (``_Arrived`` records it), so every
+    iteration's backward receives the gradient in the layout the loop's
+    exit gives it, as the reference's scan pins a carry's cotangent."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, slot=None):
+        ctx.slot = slot
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        want = ctx.slot.get("placements") if ctx.slot else None
+        if want is not None and hasattr(g, "placements") \
+                and tuple(g.placements) != want:
+            g = g.redistribute(g.device_mesh, want)
+        return g, None
+
+
+class _Arrived(torch.autograd.Function):
+    """A body's returned carry (a DTensor): records in ``slot`` the
+    placements its gradient arrives in, for ``_Mark``."""
+
+    @staticmethod
+    def forward(ctx, x, slot):
+        ctx.slot = slot
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.slot["placements"] = tuple(getattr(g, "placements", ())) or None
+        return g, None
+
+
+def _pinned(body: Callable, mark_all: bool) -> Callable:
+    """``body`` with its carry's DTensor leaves that need a gradient passed
+    through ``_Mark`` (every leaf that needs one with ``mark_all``) and
+    the carry it returns through ``_Arrived``, leaf by leaf."""
+    def run(carry, i, *args):
+        leaves, spec = pytree.tree_flatten(carry)
+        slots = [{} if isinstance(t, torch.Tensor) and t.requires_grad
+                 and hasattr(t, "placements") else None for t in leaves]
+        carry = pytree.tree_unflatten(
+            [_Mark.apply(t, s) if s is not None or (
+                mark_all and isinstance(t, torch.Tensor) and t.requires_grad)
+             else t for t, s in zip(leaves, slots)], spec)
+        if _LOOPS is not None and mark_all:
+            _LOOPS.tag(loop_carry=_LOOPS.loops[-1])
+        out, y = body(carry, i, *args)
+        outs, ospec = pytree.tree_flatten(out)
+        if len(outs) == len(slots):
+            out = pytree.tree_unflatten(
+                [_Arrived.apply(t, s) if s is not None and isinstance(
+                    t, torch.Tensor) and t.requires_grad else t
+                 for t, s in zip(outs, slots)], ospec)
+        return out, y
+    return run
 
 
 class _Invariant(torch.autograd.Function):
@@ -387,22 +462,103 @@ class _Invariant(torch.autograd.Function):
         return g, None
 
 
-def _stack_loop(ts: list) -> torch.Tensor:
-    """``torch.stack(ts)`` of a collapsed loop's iterations, which repeat
-    the body's tensor: marked so that ``memory_analysis`` counts each
-    tensor as often as the stack reads it."""
+class _StackLoop(torch.autograd.Function):
+    """``torch.stack(ts, dim)`` whose backward hands each distinct tensor
+    one slice of the gradient, its first place's: a body's y stands for
+    each iteration's, whose slices the unrolled stack's backward hands out
+    one an iteration (summing them would add what no iteration adds)."""
+
+    @staticmethod
+    def forward(ctx, dim, *ts):
+        ctx.dim, ctx.n = dim, len(ts)
+        ctx.first = {i for i, t in enumerate(ts)
+                     if all(t is not u for u in ts[:i])}
+        ctx.set_materialize_grads(False)
+        return torch.stack(ts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return (None,) * (ctx.n + 1)
+        gs = g.unbind(ctx.dim)
+        return (None, *(gs[i] if i in ctx.first else None
+                        for i in range(ctx.n)))
+
+
+def _stack_loop(ts: list, dim: int = 0) -> torch.Tensor:
+    """``torch.stack(ts, dim)`` of a collapsed loop's iterations, which
+    repeat the body's tensor: marked so that ``memory_analysis`` counts
+    each tensor as often as the stack reads it."""
     _LOOPS.tag()
-    out = torch.stack(ts)
+    out = _StackLoop.apply(dim, *ts)
     _LOOPS.tag(loop_stack=True)
     return out
 
 
-def stack(ts: list) -> torch.Tensor:
-    """``torch.stack(ts)``; a ``repeat``'s ys of a loop-aware capture hold
-    the body's value for each iteration it stands for."""
+class _CarryGrad(torch.autograd.Function):
+    """Views of (out, *carry) whose backward gives the carry a zero
+    gradient where nothing else gives it one, in the carry's layout (a
+    DTensor's zeros in its placements: autograd would materialize a plain
+    tensor)."""
+
+    @staticmethod
+    def forward(ctx, out, *carry):
+        ctx.set_materialize_grads(False)
+        ctx.like = [_zeros_spec(c) for c in carry]
+        return (out.view_as(out), *(c.view_as(c) for c in carry))
+
+    @staticmethod
+    def backward(ctx, g, *gs):
+        return (g, *(_zeros(like) if gc is None else gc
+                     for gc, like in zip(gs, ctx.like)))
+
+
+def _zeros_spec(t: torch.Tensor) -> tuple:
+    local = getattr(t, "_local_tensor", t)
+    return (tuple(t.shape), t.stride(), t.dtype, local.device,
+            tuple(local.shape), getattr(t, "device_mesh", None),
+            tuple(getattr(t, "placements", ())))
+
+
+def _zeros(spec: tuple) -> torch.Tensor:
+    shape, stride, dtype, device, local, mesh, placements = spec
+    z = torch.zeros(local, dtype=dtype, device=device)
+    if mesh is None:
+        return z
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(z, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def with_carry_grad(out: torch.Tensor, carry):
+    """(``out``, ``carry``) after a ``repeat``, ``out`` a tensor that the
+    step reads (its stacked ys, or a leaf of its final carry): the final
+    carry's leaves (a tensor or a pytree of them) receive a gradient
+    whenever ``out`` does, zeros where nothing reads them (materialized,
+    as a scan's transpose runs every iteration with a zero cotangent for
+    an unused carry).  So the last iteration's backward is every other
+    iteration's, in the unrolled capture as in a loop-aware one, whose
+    body stands for the last iteration too.  Outside ``capture``, and
+    without a gradient, the two as they are: eager runs compute what they
+    did (the zeros would reorder autograd's sums)."""
+    leaves, spec = pytree.tree_flatten(carry)
+    idx = [i for i, t in enumerate(leaves)
+           if isinstance(t, torch.Tensor) and t.requires_grad]
+    if not (_CAPTURING and idx and torch.is_grad_enabled()
+            and out.requires_grad):
+        return out, carry
+    out, *views = _CarryGrad.apply(out, *(leaves[i] for i in idx))
+    for i, v in zip(idx, views):
+        leaves[i] = v
+    return out, pytree.tree_unflatten(leaves, spec)
+
+
+def stack(ts: list, dim: int = 0) -> torch.Tensor:
+    """``torch.stack(ts, dim)``; a ``repeat``'s ys of a loop-aware capture
+    hold the body's value for each iteration it stands for."""
     if _LOOPS is not None and len(set(map(id, ts))) < len(ts):
-        return _stack_loop(ts)
-    return torch.stack(ts)
+        return _stack_loop(ts, dim)
+    return torch.stack(ts, dim)
 
 
 def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
@@ -416,17 +572,18 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
     decode cache): iteration i gets ``leaf[i]``.  ``consts`` are passed to
     every iteration as they are.
 
+    On a mesh each iteration's backward hands the carry's gradient on in
+    the layout the loop's exit gave it (``_Mark``), eager and captured
+    alike: the body's backward is then the same for every iteration (the
+    reference's scan pins a carry's cotangent as its value; mamba2's
+    layers would otherwise hand on (Shard(0), Shard(0)) where the final
+    norm gives (Shard(0), Replicate())).
+
     In a loop-aware capture the body is traced once and stands for the
     iterations whose ops are the same, as a scan's body.  Iteration 0 is
     traced on its own where the carry it returns differs from the one it
     took (in layout, in needing a gradient, a Python number become a
-    tensor), as unrolled, and the body stands for the others.  In training
-    on a mesh the last iteration is traced on its own too: its backward
-    receives the gradient from outside the loop, which DTensor
-    redistributes at the last layer's uses when its layout is not the one
-    the body's backward passes on (mamba2's carry: (Shard(0), Replicate())
-    from the final norm, (Shard(0), Shard(0)) between the layers), where
-    the reference's partitioner reshards it once before its loop.  The ys
+    tensor), as unrolled, and the body stands for the others.  The ys
     hold each traced body's y as often as it stands for an iteration
     (``stack`` stacks them).  A tensor that needs a gradient and that the
     body reads must come in through ``carry``, ``xs`` or ``consts``, or
@@ -437,16 +594,17 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
         for tree in xs:
             leaves, spec = pytree.tree_flatten(tree)
             unbound.append((spec, [a.unbind(0) for a in leaves]))
+        run = _pinned(body, False) if torch.is_grad_enabled() else body
         ys = []
         for i in range(n):
             args = [pytree.tree_unflatten([u[i] for u in us], spec)
                     for spec, us in unbound]
             args += [_index(v, i) for v in views]
-            carry, y = body(carry, i, *args, *consts)
+            carry, y = run(carry, i, *args, *consts)
             ys.append(y)
         return carry, ys
 
-    picks = (0, 1, n - 1)        # the iterations traced: see below
+    picks = (0, 1)               # the iterations traced: see below
     plan: list = []
     slices = []
     for tree in xs:
@@ -461,16 +619,13 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
         are settled later."""
         i = picks[k]
         lid = st.new_loop(n)
+        st.recomputed(lid, (getattr(body, "__code__", body), k))
         args = [s[k] for s in slices] + [_index(v, i) for v in views]
         args += [_Invariant.apply(c, lid) if isinstance(c, torch.Tensor)
                  and c.requires_grad else c for c in consts]
         st.enter(base[0] + (lid,), base[1])
         start = torch._C._autograd._get_sequence_nr()
-        carry_in = pytree.tree_map(
-            lambda t: _Mark.apply(t) if isinstance(t, torch.Tensor)
-            and t.requires_grad else t, carry)
-        st.tag(loop_carry=lid)
-        out, y = body(carry_in, i, *args)
+        out, y = _pinned(body, True)(carry, i, *args)
         st.enter(*base)
         return {"k": k, "lid": lid, "start": start, "carry_in": carry,
                 "carry": out, "y": y}
@@ -490,18 +645,11 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
     if _signature(seg["carry"]) != _signature(carry):
         ys += settle(seg, 1)
         seg = trace(1, seg["carry"])
-    rest = n - picks[seg["k"]]
-    last = rest > 1 and torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad
-        and hasattr(t, "placements") for t in pytree.tree_leaves(seg["carry"]))
-    trips = rest - 1 if last else rest
+    trips = n - picks[seg["k"]]
     if trips > 1 and _signature(seg["carry"]) != _signature(seg["carry_in"]):
         raise NotImplementedError(
             "core.aten.repeat: the carry changes on more than one iteration")
     ys += settle(seg, trips)
-    if last:
-        seg = trace(2, seg["carry"])
-        ys += settle(seg, 1)
     return seg["carry"], ys
 
 
@@ -531,7 +679,9 @@ def _hook_body(st: _LoopCapture, outputs, start: int, loops: tuple,
     """Pre-hooks on the grad_fns a traced body made (sequence number
     ``start`` or later, reached from its outputs): their backward belongs
     to ``loops``; and on the grad_fns the body's inputs came from: the
-    backward after the body's belongs to the loops around it, ``base``."""
+    backward after the body's belongs to the loops around it, ``base``.
+    A grad_fn of a loop nested in the body keeps its own loop's hook (it
+    was traced first)."""
     todo = [t.grad_fn for t in pytree.tree_leaves(outputs)
             if isinstance(t, torch.Tensor) and t.grad_fn is not None
             and t.grad_fn._sequence_nr() >= start]
@@ -541,7 +691,9 @@ def _hook_body(st: _LoopCapture, outputs, start: int, loops: tuple,
         if fn in seen:
             continue
         seen.add(fn)
-        fn.register_prehook(st.backward_hook(loops, bwd))
+        if fn not in st.hooked:
+            fn.register_prehook(st.backward_hook(loops, bwd))
+            st.hooked.add(fn)
         for nxt, _ in fn.next_functions:
             if nxt is None or nxt in seen:
                 continue
@@ -559,21 +711,25 @@ def _hook_body(st: _LoopCapture, outputs, start: int, loops: tuple,
 
 
 def drop_dead_writes(gm: torch.fx.GraphModule) -> None:
-    """Erase the in-place writes into an allocation that nothing reads, and
-    the allocation: dead stores, which ``eliminate_dead_code`` keeps as
-    side effects.  Torch 2.11's DTensor leaves them: it propagates an
-    in-place op's sharding by running it on empty tensors of the global
-    shape, once an op signature (its cache is cold in a new process)."""
+    """Erase the in-place writes into an allocation that nothing reads
+    after them, and what only they read: dead stores, which
+    ``eliminate_dead_code`` keeps as side effects.  Torch 2.11's DTensor
+    leaves them: it propagates an in-place op's sharding by running it on
+    empty tensors of the global shape, once an op signature (its cache is
+    cold in a new process); a ``masked_fill_`` there reads its allocation
+    before it writes it (``copy_(x, where(mask, v, x))``)."""
+    order = {n: i for i, n in enumerate(gm.graph.nodes)}
     for node in list(gm.graph.nodes):
         if node.op != "call_function" or not isinstance(
                 node.target, torch._ops.OpOverload) \
                 or _packet(node.target) not in ALLOCS:
             continue
-        writes = list(node.users)
-        if writes and all(not w.users and w.args and w.args[0] is node
-                          and isinstance(w.target, torch._ops.OpOverload)
-                          and _packet(w.target).endswith("_")
-                          for w in writes):
+        writes = [w for w in node.users
+                  if not w.users and w.args and w.args[0] is node
+                  and isinstance(w.target, torch._ops.OpOverload)
+                  and _packet(w.target).endswith("_")]
+        if writes and all(order[r] < min(order[w] for w in writes)
+                          for r in node.users if r not in writes):
             for w in writes:
                 gm.graph.erase_node(w)
     gm.graph.eliminate_dead_code()

@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core import aten
 from . import flash_attention as _fa
 from . import ssd_scan as _ssd
 from . import stream as _stream
@@ -64,17 +65,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     y_diag, states, gamma = _ssd.ssd_chunk(xc, dtc, A, Bc, Cc)
 
-    # inter-chunk recurrence over nc (lax.scan in the reference): prev[:, c]
-    # is the state entering chunk c, (B,H,N,P) in f32; autograd carries the
-    # gradients of states and gamma back through it
-    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-         if initial_state is None
-         else initial_state.transpose(-1, -2).float())
-    prevs = []
-    for c in range(nc):
-        prevs.append(s)
-        s = s * gamma[:, c, :, None, None] + states[:, c]
-    prev = torch.stack(prevs, dim=1)
+    # inter-chunk recurrence over nc (lax.scan in the reference, a
+    # core.aten.repeat over the chunks but the last here, as in
+    # models.ssm._recurrence): prev[:, c] is the state entering chunk c,
+    # (B,H,N,P) in f32; autograd carries the gradients of states and gamma
+    # back through it
+    s0 = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+          if initial_state is None
+          else initial_state.transpose(-1, -2).float())
+
+    def step(s, c, g, st):
+        s = s * g[:, :, None, None] + st
+        return s, s
+
+    s, ys = aten.repeat(step, nc - 1, s0, xs=(gamma[:, :-1].movedim(1, 0),
+                                             states[:, :-1].movedim(1, 0)))
+    last = s
+    s = last * gamma[:, -1, :, None, None] + states[:, -1]
+    prev, _ = aten.with_carry_grad(aten.stack([s0, *ys], dim=1), last)
 
     # inter-chunk output: exp(cs_i) * C_i . prev_state
     cs = torch.cumsum(dtc.float() * A.float(), dim=2)         # (B,nc,Q,H)

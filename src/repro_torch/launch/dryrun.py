@@ -29,7 +29,9 @@ the keys the reference's readers take (``fmt_row``, the roofline table,
 donated inputs); ``xla_cost_analysis`` is None.  The port adds
 ``peak_rss_bytes`` (the process's peak resident memory over the
 capture, parse and simulation), ``collectives`` (how often each kind
-runs and its bytes a rank, by group size), ``graph_nodes`` beside the
+runs and its bytes a rank, by group size), ``live_at_peak`` (the five
+largest temporaries live at the memory peak: node, op, shapes, dtypes,
+bytes), ``graph_nodes`` beside the
 Program's ``ops``, ``op_instances`` (the ops weighted by their counts)
 and ``op_counts`` (ops by count).  The capture is loop-aware
 (``core.aten``'s I-4: a microbatch or layer loop's body traced once and
@@ -185,7 +187,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         rep = simulate(prog, hw=H100, n_chips=chips, model_flops_global=mf,
                        title=f"{arch} {shape_name} {mesh_name}")
         t_compile = time.perf_counter() - t0
-        mem = aten.memory_analysis(gm)
+        mem = aten.memory_analysis(gm, top=5)
+        live = [list(t) for t in mem.pop("live_at_peak")]
     cfg = cell.run.model
     peak = mem["peak_bytes_est"]
     result = {
@@ -216,6 +219,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         },
         "program": rep.program_summary,
         "memory_analysis": mem,
+        "live_at_peak": live,
         "xla_cost_analysis": None,
         "pa_report": rep.pa,
         "spec": H100.name,

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..core import aten
 from ..kernels import ops as kops
 from ..parallel.sharding import (current_rules, full_value, local_einsum,
                                  local_shape_and_offset, lsc, matmul,
@@ -189,10 +190,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((B, KVH, G, Sq, D), dtype=torch.float32, device=q.device)
     pad = (0, 0, 0, 0, 0, (-Sk) % block)
     kp, vp = F.pad(k, pad), F.pad(v, pad)
-    for k0 in range(0, Sk, block):
-        kb, vb = kp[:, k0:k0 + block], vp[:, k0:k0 + block]
+    nb = kp.shape[1] // block
+
+    def step(carry, i, kb, vb, qg, qpos):
+        m, l, acc = carry
         s = local_einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
-        kpos = torch.arange(k0, k0 + block, device=q.device)
+        kpos = torch.arange(i * block, (i + 1) * block, device=q.device)
         invalid = kpos >= Sk
         if causal:
             invalid = invalid[None, :] | (qpos[:, None] < kpos[None, :])
@@ -203,11 +206,28 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l * alpha + p.sum(dim=-1)
         pv = local_einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(),
                           vb.float())
-        acc = acc * alpha[..., None] + pv
-        m = m_new
+        return (m_new, l, acc * alpha[..., None] + pv), None
+
+    # the KV blocks stacked (nb, B, block, KVH, D) and scanned, as the
+    # reference's lax.scan (core.aten.repeat)
+    (m, l, acc), _ = aten.repeat(
+        step, nb, (m, l, acc), xs=(_blocks(kp, nb), _blocks(vp, nb)),
+        consts=(qg, qpos))
+    acc, (m, l) = aten.with_carry_grad(acc, (m, l))
     out = acc / l.clamp_min(1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)   # (B,KVH,G,Sq,D)->(B,Sq,H,D)
     return out.to(q.dtype)
+
+
+def _blocks(t: torch.Tensor, nb: int) -> torch.Tensor:
+    """(B, nb x block, KVH, D) -> (nb, B, block, KVH, D), a view; each
+    block is the slice ``t[:, i * block:(i + 1) * block]``.  A DTensor
+    whose sequence is sharded (the sequence-parallel archs' K and V) is
+    gathered on it first, once, where slicing each block would."""
+    if isinstance(t, DTensor) and any(p.is_shard(1) for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_shard(1) else p for p in t.placements])
+    return t.unflatten(1, (nb, t.shape[1] // nb)).movedim(1, 0)
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,10 +7,17 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..parallel.sharding import local_einsum, lsc, matmul
+from ..parallel.sharding import (
+    all_reduce,
+    local_einsum,
+    local_shape_and_offset,
+    lsc,
+    matmul,
+    sum_replicated,
+)
 from .params import P
 
 
@@ -144,11 +151,88 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
                     vocab_size: int) -> torch.Tensor:
     """Mean next-token cross-entropy in f32.  logits: (B,S,Vp) for tokens
     (B,S).  As in the reference, the padded vocabulary entries stay in the
-    log-sum-exp; labels are always < ``vocab_size``."""
-    # on a mesh the vocabulary is gathered first: DTensor's gather from a
-    # vocab-sharded tensor (a masked partial) fails on these 3-d indices
-    lg = lsc(logits[:, :-1].float(), "batch", "rseq", None)
+    log-sum-exp; labels are always < ``vocab_size``.
+
+    On a mesh (a DTensor ``logits``) the loss is computed on each rank's
+    shard of the logits, in the layout the rules give them
+    (``sharded_next_token_loss``), where the reference's partitioner keeps
+    its ("batch", "rseq", "vocab") constraint."""
+    if isinstance(logits, DTensor):
+        return sharded_next_token_loss(logits, tokens)
+    lg = logits[:, :-1].float()
     tg = tokens[:, 1:]
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, tg[..., None].long())[..., 0]
     return (lse - picked).mean()
+
+
+class _ShardCrossEntropy(torch.autograd.Function):
+    """Cross-entropy of each row of a rank's logits ``lg`` (..., Vl), the
+    columns [v0, v0 + Vl) of a vocabulary split over the mesh dims ``dims``:
+    the row maximum, the sum of exponentials and the label's logit (from
+    the one rank whose columns hold it; a label of -1 is held by none) are
+    all-reduced over ``dims``.  The sums of exponentials accumulate in f64,
+    so how many ranks split the vocabulary changes the log-sum-exp by one
+    rounding at most.  Returns the rows' log-sum-exp minus the label's
+    logit, in f32.  The backward writes the rank's columns of softmax -
+    one-hot, times the rows' gradient, in ``lg``'s dtype: one buffer of
+    the rank's shape."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, v0, mesh, dims):
+        x = lg.float()
+        m = all_reduce(x.amax(dim=-1), "max", mesh, dims)
+        se = all_reduce(torch.exp(x - m[..., None]).sum(
+            dim=-1, dtype=torch.float64), "sum", mesh, dims)
+        lse = torch.log(se.float()) + m
+        col = labels - v0
+        hit = (col >= 0) & (col < x.shape[-1])
+        col = col.clamp(0, x.shape[-1] - 1)
+        picked = torch.gather(x, -1, col[..., None])[..., 0]
+        picked = all_reduce(torch.where(hit, picked, 0.0), "sum", mesh, dims)
+        ctx.save_for_backward(lg, lse, col, hit)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, col, hit = ctx.saved_tensors
+        p = torch.exp(lg.float() - lse[..., None]) * g[..., None]
+        p = p.scatter_add(-1, col[..., None], -(g * hit)[..., None])
+        return p.to(lg.dtype), None, None, None, None
+
+
+def sharded_next_token_loss(logits: DTensor, tokens) -> DTensor:
+    """``next_token_loss`` of a DTensor ``logits``, on local tensors:
+    nothing is allocated beyond a rank's share (B / batch shards,
+    S / sequence shards, Vp / vocabulary shards) of the logits.
+
+    The mesh dims that shard the logits' batch, sequence (the
+    sequence-parallel archs' 'rseq') and vocabulary ('vocab') are read
+    from their placements.  Each rank takes its rows' labels from its
+    rows of ``tokens`` (the last position's is -1, no label), computes its
+    rows' cross-entropy with the vocabulary's reductions over the
+    vocabulary's mesh dims (``_ShardCrossEntropy``), and sums the rows with
+    a label, divided by the global count B (S - 1); the sums are
+    all-reduced over the batch's and sequence's mesh dims.  Returns the
+    loss as a replicated DTensor.  Where no mesh dim shards the logits (a
+    1x1 mesh), the no-mesh formula runs on the local tensors: its bits."""
+    mesh, pls = logits.device_mesh, tuple(logits.placements)
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    rows = tokens.redistribute(mesh, [
+        Shard(0) if p.is_shard(0) else Replicate() for p in pls]).to_local()
+    local = logits.to_local()
+    if not any(p.is_shard() for p in pls):
+        loss = next_token_loss(local, rows, 0)
+    else:
+        sharding = [[m for m, p in enumerate(pls) if p.is_shard(d)]
+                    for d in range(3)]
+        (_, Sl, _), (_, s0, v0) = local_shape_and_offset(logits.shape, mesh,
+                                                         pls)
+        B, S = logits.shape[:2]
+        labels = F.pad(rows[:, 1:].long(), (0, 1), value=-1)[:, s0:s0 + Sl]
+        ce = _ShardCrossEntropy.apply(local, labels, v0, mesh, sharding[2])
+        part = torch.where(labels >= 0, ce, 0.0).sum() / (B * (S - 1))
+        loss = sum_replicated(part, mesh, sharding[0] + sharding[1])
+    return DTensor.from_local(loss, mesh, rep, run_check=False)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import aten
 from ..device import resolve
 from ..kernels import ops as kops
 from ..parallel.sharding import local_einsum, local_map, lsc, matmul
@@ -146,12 +147,24 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _recurrence(gamma, S_c, carry):
-    """The states entering each chunk (B,nc,H,P,N) and the final one."""
-    prev = []
-    for c in range(S_c.shape[1]):
-        prev.append(carry)
-        carry = carry * gamma[:, c, :, None, None] + S_c[:, c]
-    return torch.stack(prev, dim=1), carry
+    """The states entering each chunk (B,nc,H,P,N) and the final one.  The
+    states entering chunks 1 to nc - 1 come from a ``core.aten.repeat``
+    over the chunks but the last (the reference's ``lax.scan``), gamma and
+    the chunks' states stacked on their chunk dim; the final state is one
+    more step after it.  So each iteration's new state is read (its y), as
+    every iteration's is in the reference's scan."""
+    nc = S_c.shape[1]
+
+    def step(carry, c, g, s):
+        carry = carry * g[:, :, None, None] + s
+        return carry, carry
+
+    last, ys = aten.repeat(step, nc - 1, carry,
+                           xs=(gamma[:, :-1].movedim(1, 0),
+                               S_c[:, :-1].movedim(1, 0)))
+    final = last * gamma[:, -1, :, None, None] + S_c[:, -1]
+    prev, _ = aten.with_carry_grad(aten.stack([carry, *ys], dim=1), last)
+    return prev, final
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,

@@ -369,6 +369,17 @@ def local_einsum(eq: str, *xs):
     return local_map(eq, lambda *a: torch.einsum(eq, *a), *xs)
 
 
+def all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """A plain tensor all-reduced (``op``: "sum", "max", ...) over each mesh
+    dim in ``dims``, one functional collective a dim; not differentiable."""
+    import torch.distributed._functional_collectives as funcol
+    for m in dims:
+        x = funcol.all_reduce(x.contiguous(), op, (mesh, m))
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
 class _SumGrad(torch.autograd.Function):
     """Identity forward; the gradient summed over mesh dims (all-reduced)."""
 
@@ -379,12 +390,30 @@ class _SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed._functional_collectives as funcol
-        for m in ctx.dims:
-            g = funcol.all_reduce(g.contiguous(), "sum", (ctx.mesh, m))
-            if isinstance(g, funcol.AsyncCollectiveTensor):
-                g = g.wait()
+        return all_reduce(g, "sum", ctx.mesh, ctx.dims), None, None
+
+
+class _SumReplicated(torch.autograd.Function):
+    """The sum over mesh dims of each rank's part, held by every rank; the
+    gradient passes through as it is, since each rank's copy of the sum
+    stands for the one value whose gradient every rank receives."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return all_reduce(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
         return g, None, None
+
+
+def sum_replicated(local: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``local`` summed over the mesh dims ``dims`` (all-reduced), the
+    result replicated there; its gradient reaches each rank's part
+    unreduced (the forward's reduction already counted every part once)."""
+    if not dims:
+        return local
+    return _SumReplicated.apply(local, mesh, tuple(dims))
 
 
 def sum_grad(local: torch.Tensor, mesh, dims) -> torch.Tensor:

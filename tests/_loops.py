@@ -24,18 +24,23 @@ B, S = 4, 32
 CLASSES = ("matmul", "elementwise", "transcendental")
 
 
-def reduced(arch: str, layers: int):
+def reduced(arch: str, layers: int, chunk=None):
     cfg = dataclasses.replace(reduced_config(ARCHS[arch]), n_layers=layers)
     if cfg.family == "audio":
         cfg = dataclasses.replace(cfg, n_encoder_layers=layers)
+    if chunk is not None and cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               chunk=chunk))
     return cfg
 
 
-def step(arch: str, what: str, layers: int = 4, micro: int = 2):
+def step(arch: str, what: str, layers: int = 4, micro: int = 2,
+         kv_block: int = 1024, chunk=None):
     """(fn, args) of ``arch``'s reduced ``what`` ("train", "prefill" or
-    "decode") step on real tensors."""
-    cfg = reduced(arch, layers)
-    model = build_model(cfg)
+    "decode") step on real tensors (the blocked attention's KV blocks of
+    ``kv_block``; the SSM's chunk ``chunk`` where given)."""
+    cfg = reduced(arch, layers, chunk)
+    model = build_model(cfg, kv_block=kv_block)
     params = model.init(torch.Generator().manual_seed(0))
     batch = {k: (torch.zeros(v.shape, dtype=v.dtype) if k != "pos" else v)
              for k, v in model.input_specs(ShapeConfig("t", S, B, what),
@@ -99,11 +104,12 @@ def assert_equal_programs(unrolled, loops):
     return pu, pl
 
 
-def cell_at_depth(arch: str, shape: str, mesh, layers: int = 4):
+def cell_at_depth(arch: str, shape: str, mesh, layers: int = 4,
+                  chunk: int = 4096):
     """``launch.cell.build_cell`` at the reduced widths and ``layers``
     layers (whisper's encoder too), a train cell in 2 microbatches, the
-    SSM's chunk raised to 4096 (as ``test_torch_cell.py``'s reduced
-    cells: a chunk of 16 unrolls 256 chunks at 4k tokens)."""
+    SSM's chunk raised to ``chunk`` (as ``test_torch_cell.py``'s reduced
+    cells: a chunk of 16 makes 256 chunks at 4k tokens)."""
     from repro_torch.configs import SHAPES
     from repro_torch.launch import cell
     red = reduced_config(ARCHS[arch])
@@ -113,7 +119,7 @@ def cell_at_depth(arch: str, shape: str, mesh, layers: int = 4):
     if red.family == "audio":
         over["n_encoder_layers"] = layers
     if red.ssm is not None:
-        over["ssm"] = dataclasses.replace(red.ssm, chunk=4096)
+        over["ssm"] = dataclasses.replace(red.ssm, chunk=chunk)
     run = ({"microbatch": SHAPES[shape].global_batch // 2}
            if SHAPES[shape].kind == "train" else None)
     return cell.build_cell(arch, shape, mesh, model_overrides=over,

@@ -204,3 +204,55 @@ def elastic(rank, world, tmp, ckpt_dir, run, tree_file, tok_file):
         out[name] = (at, extra, placements, host_float(m["loss"]),
                      _flat_numpy(params))
     return out
+
+
+def loss_grad(cfg, params, tokens, mesh, act_overrides=None):
+    """``LM.loss_fn`` of the batch ``tokens`` and its gradient for every
+    parameter, on ``mesh`` (None: no mesh), in f32: (loss, {leaf path:
+    numpy gradient})."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch.train import place_batch
+    from repro_torch.models import params as pr
+    from repro_torch.models.lm import build_model
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    from repro_torch.train.trainer import make_train_step
+
+    model = build_model(cfg)
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    rules = None
+    if mesh is not None:
+        run = RunConfig(model=cfg, shape=ShapeConfig("t", tokens.shape[1],
+                                                     tokens.shape[0], "train"))
+        rules = make_rules(mesh, None, act_overrides)
+        p_sh = make_train_step(model, run, rules)[3]
+        params = pr.distribute(params, p_sh, mesh)
+        batch = place_batch(model, run, batch, mesh)
+    leaves = [p.detach().requires_grad_(True) for p in pr.leaves(params)]
+    it = iter(leaves)
+    params = pr.tree_map(lambda _: next(it), params)
+    with use_rules(rules):
+        loss, _ = model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    return (float(full_value(loss.detach())),
+            _flat_numpy(pr.tree_map(lambda _: next(it), params)))
+
+
+def loss_cases(rank, world, tmp, cases):
+    """For each (name, config, SP activation rules or None, tokens file):
+    the loss and gradients (``loss_grad``) on a (1, 2) mesh (ranks 0-1,
+    and 2-3 on another) and on the (2, 2) mesh of all four.  Returns
+    {(name, mesh): result} from the first rank of each mesh."""
+    from repro_torch.models.lm import build_model
+
+    meshes = {"1x2": submesh([[0, 1]]), "1x2b": submesh([[2, 3]]),
+              "2x2": submesh([[0, 1], [2, 3]])}
+    out = {}
+    for name, cfg, act, tok_file in cases:
+        params = build_model(cfg).init(torch.Generator().manual_seed(0))
+        tokens = np.load(tok_file)
+        for m in ("1x2" if rank < 2 else "1x2b", "2x2"):
+            res = loss_grad(cfg, params, tokens, meshes[m], act)
+            if rank in (0, 2) and (m != "2x2" or rank == 0):
+                out[(name, m)] = res
+    return out

@@ -264,13 +264,19 @@ def test_capture_parse_and_simulate_at_reduced_width(arch, shape,
 def test_the_loop_aware_capture_equals_the_unrolled_one_on_a_mesh(shape,
                                                                  mesh_2x2):
     """chatglm3-6b at 4 layers on the (2, 2) mesh; the train cell in 2
-    microbatches counts its layers 2 x 4 times, bar the last, which a
-    mesh's training traces on its own (``core.aten.repeat``)."""
+    microbatches counts its layers 2 x 4 times, as the reference's parse
+    (each layer's backward hands the gradient on in the layout the loop's
+    exit gives it: ``core.aten.repeat``), and in each layer the blocked
+    attention's 4 KV blocks: the first on its own, the body 3 times (its
+    query's gradient summed 2 times); prefill's 32 KV blocks a layer
+    count 4 x 32."""
     from _loops import assert_loop_aware_cell_equals_unrolled, cell_at_depth
     prog = assert_loop_aware_cell_equals_unrolled(
         cell_at_depth("chatglm3-6b", shape, mesh_2x2))
     counts = {o.count for o in prog.ops}
-    assert counts == ({1, 2, 2 * 3} if shape == "train_4k" else {1, 4})
+    assert counts == {"train_4k": {1, 2, 2 * 4, 2 * 4 * 2, 2 * 4 * 3},
+                      "prefill_32k": {1, 4, 4 * 32},
+                      "decode_32k": {1, 4}}[shape]
 
 
 def test_dead_writes_into_allocations_are_dropped():
@@ -293,6 +299,32 @@ def test_dead_writes_into_allocations_are_dropped():
                                                        "multiply"]
     aten.drop_dead_writes(gm)
     assert [o.opcode for o in parse_graph(gm).ops] == ["copy", "multiply"]
+
+
+def test_a_dead_write_that_reads_its_allocation_is_dropped():
+    """A write into an allocation that reads the allocation first (a
+    ``masked_fill_`` decomposed to ``copy_(x, where(m, v, x))``, as torch
+    2.11's DTensor propagates it on empty tensors) and that nothing reads
+    after is dropped with what only it reads; a write read afterwards
+    stays."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core import aten
+
+    def f(x, m):
+        dead = torch.empty(4, 8)
+        dead.copy_(torch.where(m, 0.0, dead))          # read by nothing
+        kept = torch.empty(4, 8)
+        kept.copy_(torch.where(m, 0.0, kept))          # read below
+        return kept + x
+    gm = make_fx(f)(torch.randn(4, 8), torch.rand(4, 8) > 0.5)
+    gm.graph.eliminate_dead_code()
+    before = [o.opcode for o in parse_graph(gm).ops]
+    aten.drop_dead_writes(gm)
+    after = [o.opcode for o in parse_graph(gm).ops]
+    assert before.count("select") == before.count("copy") == 2
+    assert after.count("select") == after.count("copy") == 1
+    assert after[-1] == "add"
 
 
 # (global shape, dtype, placements before, after) of every redistribution

@@ -13,8 +13,9 @@ whether it fits the card's HBM, and the one-line tuning hint of the PA
 report; ``--mesh both`` puts both meshes' terms side by side, a row a
 cell.  ``--capture`` lists each capture's host seconds, graph nodes, ops
 and count-weighted totals instead, and ``--against DIR`` puts another
-sweep's t_est and terms beside these (an ``--unrolled`` sweep: the
-capture before loops were counted).  Host code: it reads JSON only.
+sweep's t_est and terms (with ``--mesh both``, its peaks and t_est)
+beside these (an ``--unrolled`` sweep: the capture before loops were
+counted; or an earlier tree's).  Host code: it reads JSON only.
 """
 from __future__ import annotations
 
@@ -82,20 +83,25 @@ def fmt_both(single, multi, against=None) -> str:
     """Both meshes side by side, a row a cell: the three terms (s), the
     dominant one and the peak GiB a rank on (16, 16), then on (2, 16,
     16); "—" where a mesh has no artifact for the cell.  With ``against``
-    (another sweep's rows, an ``--unrolled`` one) each mesh also shows
-    t_est, that sweep's beside this one's."""
+    (another sweep's rows: an ``--unrolled`` one, or an earlier tree's)
+    each mesh also shows that sweep's peak and t_est beside this one's."""
     old = {(r["arch"], r["shape"], r["mesh"]): r for r in against or ()}
+
+    def peak(r):
+        return ((r.get("memory_analysis") or {}).get("peak_bytes_est")
+                or 0) / 2**30
 
     def terms(r):
         if r is None:
             return "— | — | —" + (" | —" if against is not None else "")
         rf = r["roofline"]
-        peak = (r.get("memory_analysis") or {}).get("peak_bytes_est") or 0
         out = (f"{rf['compute_s']:.4f} / {rf['memory_s']:.4f} / "
-               f"{rf['collective_s']:.4f} | {rf['dominant']} "
-               f"| {peak / 2**30:.2f}{'' if r.get('fits_hbm') else ' (N)'}")
+               f"{rf['collective_s']:.4f} | {rf['dominant']} | ")
+        o = old.get((r["arch"], r["shape"], r["mesh"]))
         if against is not None:
-            o = old.get((r["arch"], r["shape"], r["mesh"]))
+            out += f"{peak(o):.2f} / " if o else "— / "
+        out += f"{peak(r):.2f}{'' if r.get('fits_hbm') else ' (N)'}"
+        if against is not None:
             out += (f" | {o['engine']['t_est']:.4f}" if o else " | —") + \
                 f" / {r['engine']['t_est']:.4f}"
         return out
@@ -104,9 +110,10 @@ def fmt_both(single, multi, against=None) -> str:
         for r in rows:
             by.setdefault((r["arch"], r["shape"]), {})[mesh] = r
     t_est = " | t_est s old / new" if against is not None else ""
+    vs = " old / new" if against is not None else ""
     out = ["| arch | shape | (16, 16) compute / memory / collective s "
-           f"| dominant | peak GiB{t_est} | (2, 16, 16) compute / memory / "
-           f"collective s | dominant | peak GiB{t_est} |",
+           f"| dominant | peak GiB{vs}{t_est} | (2, 16, 16) compute / "
+           f"memory / collective s | dominant | peak GiB{vs}{t_est} |",
            "|---|---|" + "---|" * (6 + 2 * bool(t_est))]
     for (arch, shape), r in sorted(by.items()):
         out.append(f"| {arch} | {shape} | {terms(r.get('single'))} "
