@@ -238,7 +238,10 @@ Phases, in order; any failure exits non-zero and prints no result:
     started after phase 31 and run beside phases 32-33 and ``[mem]``; each
     cell's capture seconds, peak resident memory, graph nodes, ops and
     their counts, peak bytes a rank, collectives by kind and dominant
-    term;
+    term; for the train cell its largest temporary at the peak (neither a
+    loss buffer over a rank's share nor a stacked weight's gradient over
+    a rank's f32 share of it) and its stacked weights' gradient
+    reductions a layer instance;
     ``tools/roofline_table_torch.py`` on the artifacts; a Shard(0) ->
     Shard(1) redistribution captured as one all-to-all (``[dryrun]``
     lines); then ``[mem]``: ``core.aten.memory_analysis``'s output + temp
@@ -268,6 +271,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2518,10 +2522,14 @@ def start_dryrun(tmp: Path) -> dict:
 
 
 def train_cell_memory(name: str, c: dict) -> None:
-    """A train cell's peak a rank and its largest temporary at the peak;
+    """A train cell's peak a rank, its largest temporary at the peak and
+    its stacked weights' gradient reductions a layer instance (the
+    reduce-scatters into the FSDP shard in the layer loop's backward);
     fails if that temporary is a loss buffer (a 3-d tensor as wide as the
     padded vocabulary or a rank's part of it) larger than a rank's share
-    of the microbatch's f32 (batch, seq, vocab) logits."""
+    of the microbatch's f32 (batch, seq, vocab) logits, or a stacked
+    weight's gradient (its shape, or a shard of it) larger than a rank's
+    f32 share of that weight."""
     from repro_torch.configs import ARCHS, SHAPES
     arch, shape = name.split("/")
     V, S = ARCHS[arch].padded_vocab, SHAPES[shape].seq_len
@@ -2529,15 +2537,33 @@ def train_cell_memory(name: str, c: dict) -> None:
     share = rows * S * V * 4 / c["n_chips"]
     top = c["live_at_peak"][0]
     node, op, shapes, dtypes, held = top
+    grads = c["grad_collectives"]
+    body = max(grads, key=float) if grads else None
+    per_layer = (f"{grads[body]['ops']} reductions of the stacked weights' "
+                 f"gradients, {grads[body]['bytes'] / 1e9:.4f} GB a layer "
+                 f"instance (x{body})" if body else "no gradient reductions "
+                 "in the layer loop")
     print(f"[mem] {name} (train, {c['n_chips']} fake ranks): peak "
           f"{c['peak_gib_a_rank']:.2f} GiB a rank; largest temporary at the "
           f"peak {node} ({op}) {shapes} {dtypes} {held / 2**30:.3f} GiB; a "
-          f"rank's share of the f32 loss buffer {share / 2**30:.3f} GiB")
+          f"rank's share of the f32 loss buffer {share / 2**30:.3f} GiB; "
+          f"{per_layer}")
     # V // 16: a rank's part of the vocabulary on the 16-way 'model' axis
     loss = any(len(sh) == 3 and sh[-1] in (V, V // 16) for sh in shapes)
     if loss and held > share:
         fail(f"phase 34: {name}'s largest temporary at the peak is a loss "
              f"buffer over a rank's share: {top}")
+    for full, local in c["stacked_shards"].values():
+        f32_share = math.prod(local) * 4
+        like = any(len(sh) == len(full) and sh[0] == full[0] and all(
+            f % d == 0 for f, d in zip(full, sh)) for sh in shapes)
+        if like and held > f32_share:
+            fail(f"phase 34: {name}'s largest temporary at the peak is a "
+                 f"stacked weight's gradient {list(full)} over a rank's f32 "
+                 f"share ({f32_share / 2**30:.3f} GiB): {top}")
+    if not grads:
+        fail(f"phase 34: {name} reduces no stacked weight's gradient in "
+             f"its layer loop")
 
 
 def dryrun_phase(tmp: Path, procs: dict) -> dict:
@@ -2584,6 +2610,8 @@ def dryrun_phase(tmp: Path, procs: dict) -> dict:
         mem, rf = r["memory_analysis"], r["roofline"]
         cells[f"{arch}/{shape}"] = {
             "kind": r["kind"], "live_at_peak": r["live_at_peak"],
+            "grad_collectives": r["grad_collectives"],
+            "stacked_shards": r["stacked_shards"],
             "microbatch": r["microbatch"], "n_chips": r["n_chips"],
             "capture_s": r["t_lower_s"], "parse_sim_s": r["t_compile_s"],
             "peak_rss_gib": r["peak_rss_bytes"] / 2**30,

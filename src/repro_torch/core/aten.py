@@ -74,7 +74,10 @@ under DESIGN.md §9's rules restated for eager ATen:
   microbatch loop counts ``n_micro x n_layers``.  The layers' parameter
   slices are views read in the body (I-2); their gradient is the stack of
   the n layers' slices, written once (n slices read and written, as the
-  unrolled capture's and as n dynamic-update-slices of one slice each).  A
+  unrolled capture's and as n dynamic-update-slices of one slice each),
+  each slice's reduced into the slice's placements on a mesh in the
+  body's backward (``grad_in_placements``: its collectives count the
+  trips and carry ``meta["grad_of"]``, the leaf's name in ``xs``).  A
   stacked output is the stack of the one iteration's output n times, the
   bytes of the unrolled stack.  A tensor the body reads unchanged on every
   iteration (``consts``) has its gradient summed n - 1 times, as autograd
@@ -441,6 +444,72 @@ def _pinned(body: Callable, mark_all: bool) -> Callable:
     return run
 
 
+def traced_as(fn: Callable, **meta):
+    """``fn()``, the graph nodes it traces (inside a capture) stamped with
+    ``meta``; outside a capture ``fn()`` as it is."""
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+    mode = get_proxy_mode()
+    if mode is None:
+        return fn()
+    graph = mode.tracer.graph
+    last = graph._root.prev
+    out = fn()
+    node = last.next
+    while node is not graph._root:
+        node.meta.update(meta)
+        node = node.next
+    return out
+
+
+class _GradIn(torch.autograd.Function):
+    """A view of a DTensor whose gradient is redistributed to the view's
+    placements: the transpose of a sharding constraint, as the reference's
+    scan gives an ``xs`` slice's cotangent the slice's sharding.  The nodes
+    of the redistribution carry ``meta["grad_of"]`` = ``name``."""
+
+    @staticmethod
+    def forward(ctx, x, name, keep):
+        ctx.mesh, ctx.placements, ctx.leaf, ctx.keep = (
+            x.device_mesh, tuple(x.placements), name, keep)
+        ctx.set_materialize_grads(False)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None or not hasattr(g, "placements"):
+            return g, None, None
+        want = tuple(g.placements[m] if m in ctx.keep else p
+                     for m, p in enumerate(ctx.placements))
+        if tuple(g.placements) != want:
+            g = traced_as(lambda: g.redistribute(ctx.mesh, want),
+                          grad_of=ctx.leaf)
+        return g, None, None
+
+
+def grad_in_placements(x, name: str = ""):
+    """``x`` (a parameter's slice) as a view whose gradient arrives in
+    ``x``'s placements, reduced there in its own dtype (a partial sum over
+    'data' reduce-scattered into the FSDP shard) as soon as the backward
+    computes it, but on the mesh dims of the installed rules'
+    ``keep_grad_dims``, where it stays as the backward gives it; a plain
+    tensor, one that needs no gradient, or a DTensor on a mesh of one rank
+    as it is."""
+    if not (isinstance(x, torch.Tensor) and x.requires_grad
+            and hasattr(x, "placements") and x.device_mesh.size() > 1):
+        return x
+    from ..parallel.sharding import current_rules
+    rules = current_rules()
+    return _GradIn.apply(x, name,
+                         rules.keep_grad_dims if rules is not None else ())
+
+
+def _leaf_names(tree) -> list:
+    """'a/b' of each leaf of ``tree``, in ``tree_flatten``'s order."""
+    return ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path)
+            for path, _ in pytree.tree_flatten_with_path(tree)[0]]
+
+
 class _Invariant(torch.autograd.Function):
     """A tensor every iteration of a body reads unchanged: its gradient is
     summed over the iterations the body stands for, trips - 1 adds, as
@@ -577,7 +646,11 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
     alike: the body's backward is then the same for every iteration (the
     reference's scan pins a carry's cotangent as its value; mamba2's
     layers would otherwise hand on (Shard(0), Shard(0)) where the final
-    norm gives (Shard(0), Replicate())).
+    norm gives (Shard(0), Replicate())).  Each ``xs`` slice's gradient is
+    reduced into the slice's placements in its iteration's backward
+    (``grad_in_placements``), as the reference's scan transposes a
+    slice's cotangent in the slice's sharding: the stacked gradient
+    leaves the loop in the parameter's placements, never whole.
 
     In a loop-aware capture the body is traced once and stands for the
     iterations whose ops are the same, as a scan's body.  Iteration 0 is
@@ -589,12 +662,18 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
     body reads must come in through ``carry``, ``xs`` or ``consts``, or
     the capture raises."""
     st = _LOOPS
+    grad = torch.is_grad_enabled()
     if st is None or n <= 1:
         unbound = []
         for tree in xs:
             leaves, spec = pytree.tree_flatten(tree)
-            unbound.append((spec, [a.unbind(0) for a in leaves]))
-        run = _pinned(body, False) if torch.is_grad_enabled() else body
+            if grad:
+                unbound.append((spec, [
+                    [grad_in_placements(u, nm) for u in a.unbind(0)]
+                    for a, nm in zip(leaves, _leaf_names(tree))]))
+            else:
+                unbound.append((spec, [a.unbind(0) for a in leaves]))
+        run = _pinned(body, False) if grad else body
         ys = []
         for i in range(n):
             args = [pytree.tree_unflatten([u[i] for u in us], spec)
@@ -606,12 +685,13 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
 
     picks = (0, 1)               # the iterations traced: see below
     plan: list = []
-    slices = []
+    slices, names = [], []
     for tree in xs:
         leaves, spec = pytree.tree_flatten(tree)
         outs = [_Slice.apply(a, picks, plan) for a in leaves]
         slices.append([pytree.tree_unflatten([o[k] for o in outs], spec)
                        for k in range(len(picks))])
+        names.append(pytree.tree_unflatten(_leaf_names(tree), spec))
     base = (st.loops, st.bwd)
 
     def trace(k: int, carry) -> dict:
@@ -620,12 +700,16 @@ def repeat(body: Callable, n: int, carry, xs: tuple = (), views: tuple = (),
         i = picks[k]
         lid = st.new_loop(n)
         st.recomputed(lid, (getattr(body, "__code__", body), k))
-        args = [s[k] for s in slices] + [_index(v, i) for v in views]
-        args += [_Invariant.apply(c, lid) if isinstance(c, torch.Tensor)
+        rest = [_index(v, i) for v in views]
+        rest += [_Invariant.apply(c, lid) if isinstance(c, torch.Tensor)
                  and c.requires_grad else c for c in consts]
         st.enter(base[0] + (lid,), base[1])
         start = torch._C._autograd._get_sequence_nr()
-        out, y = _pinned(body, True)(carry, i, *args)
+        # each slice's gradient reduced into its placements in the body's
+        # backward, as the unrolled loop's (``grad_in_placements``)
+        args = [pytree.tree_map(grad_in_placements, s[k], tree)
+                for s, tree in zip(slices, names)]
+        out, y = _pinned(body, True)(carry, i, *args, *rest)
         st.enter(*base)
         return {"k": k, "lid": lid, "start": start, "carry_in": carry,
                 "carry": out, "y": y}

@@ -13,7 +13,9 @@ of ``simulate`` on the ``H100`` spec, the capture's
 ``core.aten.memory_analysis`` and the temporaries live at its peak, the
 top ops by modelled time in the reference's columns, and the op-count
 histogram (the loop-aware capture's counts: a loop's ops carry its
-trips).  ``--dump-graph``
+trips), and the collectives by count with what each carries (the op
+that made its operand, or the stacked parameter whose gradient it
+reduces).  ``--dump-graph``
 writes the capture's code (``gm.code``) where the reference writes its
 HLO.  ``--reduced --mesh-shape DxM`` take the reduced widths on a (data,
 model) mesh (for tests).  Host code: nothing runs on a card.
@@ -31,7 +33,7 @@ from ..core import aten
 from ..core.hwspec import H100
 from ..core.simulate import simulate
 from .cell import model_flops_for
-from .dryrun import SRC, capture
+from .dryrun import SRC, capture, collective_nodes
 
 
 def _args(argv):
@@ -90,6 +92,24 @@ def analyze(args) -> int:
               f"{o.bytes_accessed * o.count / 1e9:>9.2f}"
               f"{o.comm_bytes * o.count / 1e9:>9.2f}"
               f"{t.t_op * o.count * 1e3:>11.2f}")
+
+    # the collectives by count, and at each count what they carry: a
+    # layer loop's count x its bytes an instance is its share of the term
+    colls = collective_nodes(gm)
+    by_count = collections.defaultdict(list)
+    for c in colls:
+        by_count[c["count"]].append(c)
+    print("\n== collectives by count (bytes an instance a rank) ==")
+    for count in sorted(by_count, reverse=True):
+        cs = by_count[count]
+        print(f"  x{count:<10.0f} {len(cs):>4d} ops "
+              f"{sum(c['bytes'] for c in cs) / 1e9:>10.4f} GB an instance")
+        for c in sorted(cs, key=lambda c: -c["bytes"])[:args.top]:
+            what = (f"grad of {c['grad_of']}" if c["grad_of"] is not None
+                    else f"carries {c['source']}")
+            print(f"      {c['opcode']} x{c['group_size']:<4} "
+                  f"{c['bytes'] / 1e9:>9.4f} GB {c['dtype']}{c['shape']} "
+                  f"{'bwd ' if c['backward'] else ''}{what}")
 
     # trip-count audit: group op counts
     counts = collections.Counter(o.count for o in prog.ops)

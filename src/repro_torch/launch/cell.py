@@ -42,7 +42,8 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..core import aten
 from ..models import params as pr
 from ..models.lm import LM, build_model
-from ..parallel.sharding import MeshRules, make_rules
+from ..parallel.sharding import (MeshRules, contiguous_stride, make_rules,
+                                 shard_shape)
 from ..serve.engine import make_decode_step, make_prefill_step
 from ..serve.kvcache import cache_abstract, cache_shardings
 from ..train.trainer import make_train_step
@@ -100,7 +101,7 @@ class Cell:
         for i, (a, sh) in enumerate(zip(self.args, self.in_shardings)):
             def visit(t, placements, i=i):
                 if isinstance(t, torch.Tensor):
-                    out.append((_local_shape(t.shape, placements, sizes),
+                    out.append((shard_shape(t.shape, placements, sizes),
                                 t.dtype, tuple(t.shape), tuple(placements),
                                 i))
                 return t
@@ -139,7 +140,7 @@ class Cell:
                 shape, placements = shards[slot.i][2:4]
                 return DTensor.from_local(
                     locals_[slot.i], mesh, placements, run_check=False,
-                    shape=torch.Size(shape), stride=_contiguous(shape))
+                    shape=torch.Size(shape), stride=contiguous_stride(shape))
 
             args = [_map_state(wrap, s, s) for s in slots]
             if self.kind == "train":
@@ -248,24 +249,6 @@ def _all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
 class _Slot:
     """An input's index among ``Cell.capture``'s local shards."""
     i: int
-
-
-def _local_shape(shape, placements, sizes) -> tuple:
-    """A rank's shard of ``shape`` (even splits, as the production shapes
-    divide)."""
-    local = list(shape)
-    for size, pl in zip(sizes, placements):
-        if pl.is_shard():
-            local[pl.dim] //= size
-    return tuple(local)
-
-
-def _contiguous(shape) -> tuple:
-    out, acc = [], 1
-    for s in reversed(shape):
-        out.append(acc)
-        acc *= s
-    return tuple(reversed(out))
 
 
 def _map_state(f, tree, other):

@@ -29,10 +29,12 @@ the keys the reference's readers take (``fmt_row``, the roofline table,
 donated inputs); ``xla_cost_analysis`` is None.  The port adds
 ``peak_rss_bytes`` (the process's peak resident memory over the
 capture, parse and simulation), ``collectives`` (how often each kind
-runs and its bytes a rank, by group size), ``live_at_peak`` (the five
-largest temporaries live at the memory peak: node, op, shapes, dtypes,
-bytes), ``graph_nodes`` beside the
-Program's ``ops``, ``op_instances`` (the ops weighted by their counts)
+runs and its bytes a rank, by group size), ``grad_collectives`` (the
+stacked parameters' gradient reductions in the layer loops' backward, by
+count, and their bytes an instance), ``stacked_shards`` (each stacked
+parameter's global shape and a rank's shard of it), ``live_at_peak``
+(the five largest temporaries live at the memory peak: node, op,
+shapes, dtypes, bytes), ``graph_nodes`` beside the Program's ``ops``, ``op_instances`` (the ops weighted by their counts)
 and ``op_counts`` (ops by count).  The capture is loop-aware
 (``core.aten``'s I-4: a microbatch or layer loop's body traced once and
 counted its trips, as the reference's parse counts a ``lax.scan``);
@@ -60,6 +62,7 @@ from ..configs import ARCHS, SHAPES, reduced_config, skipped_shapes_for
 from ..core import aten
 from ..core.hwspec import H100
 from ..core.simulate import simulate
+from ..models import params as pr
 from .cell import all_cells, build_cell, model_flops_for
 from .mesh import make_host_mesh, make_production_mesh, n_chips
 
@@ -108,6 +111,74 @@ def collectives_by_kind(prog) -> dict:
                                {"count": 0, "bytes": 0.0})
             c["count"] += int(o.count)
             c["bytes"] += o.comm_bytes * o.count
+    return out
+
+
+# nodes a collective's operand passes through on its way from the op that
+# made it: views, the pieces of a gather or scatter on a dim other than 0,
+# and the waits of earlier collectives
+_PASS = aten.VIEWS | {"cat", "clone", "wait_tensor", "_to_copy"}
+
+
+def _source(node) -> str:
+    """The op whose output a collective's operand carries: "<op>(shape)"
+    of the first node back along the largest input that is not a view, a
+    copy, a cast or another collective's wait."""
+    import torch
+    seen = 0
+    while node.op == "call_function" and seen < 32:
+        name = (aten._packet(node.target)
+                if isinstance(node.target, torch._ops.OpOverload)
+                else getattr(node.target, "__name__", str(node.target)))
+        if name not in _PASS and name != "getitem" and not (
+                aten._is_collective(node.target) and seen):
+            val = node.meta.get("val")
+            shape = tuple(val.shape) if isinstance(val, torch.Tensor) else ()
+            return f"{name}{list(shape)}"
+        ins = [a for a in node.all_input_nodes
+               if isinstance(a.meta.get("val"), torch.Tensor)]
+        if not ins:
+            break
+        node = max(ins, key=lambda a: a.meta["val"].numel())
+        seen += 1
+    return "input"
+
+
+def collective_nodes(gm) -> list:
+    """Each collective of a capture: {"node", "opcode", "group_size",
+    "count" (its loops' trips), "bytes" (its operand's bytes an instance,
+    as ``parse_graph`` charges it), "shape", "dtype", "grad_of" (the
+    stacked parameter whose gradient ``aten.grad_in_placements`` reduces,
+    else None), "source" (the op whose output it carries), "backward"}."""
+    out = []
+    for n in gm.graph.nodes:
+        if n.op != "call_function" or not aten._is_collective(n.target) \
+                or aten._packet(n.target) not in aten.COLLECTIVE_OPS:
+            continue
+        t = n.args[0].meta["val"]
+        out.append({"node": n.name,
+                    "opcode": aten.COLLECTIVE_OPS[aten._packet(n.target)],
+                    "group_size": n.meta.get("group_size"),
+                    "count": aten.trips(n),
+                    "bytes": float(t.numel() * t.element_size()),
+                    "shape": list(t.shape), "dtype": aten._dtype(t),
+                    "grad_of": n.meta.get("grad_of"),
+                    "source": _source(n.args[0]),
+                    "backward": "loop_bwd" in n.meta})
+    return out
+
+
+def grad_collectives(nodes: list) -> dict:
+    """The stacked parameters' gradient reductions (``collective_nodes``
+    with ``grad_of``), by count: {"<count>": {"ops", "bytes"}}, "bytes"
+    the sum of their operands' bytes an instance: at the layer loop's
+    count, what a layer instance's gradient moves."""
+    out = {}
+    for c in nodes:
+        if c["grad_of"] is not None:
+            e = out.setdefault(f"{c['count']:g}", {"ops": 0, "bytes": 0.0})
+            e["ops"] += 1
+            e["bytes"] += c["bytes"]
     return out
 
 
@@ -231,6 +302,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             o.count for o in prog.ops).items())},
         "peak_rss_bytes": rss.peak,
         "collectives": collectives_by_kind(prog),
+        "grad_collectives": grad_collectives(collective_nodes(gm)),
+        "stacked_shards": {k: [list(full), list(local)] for k, (full, local)
+                           in pr.stacked_shards(cell.model.param_specs(),
+                                                cell.rules).items()},
     }
     dest.parent.mkdir(parents=True, exist_ok=True)
     dest.write_text(json.dumps(result, indent=1, sort_keys=True))

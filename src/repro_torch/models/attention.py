@@ -30,7 +30,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..configs.base import ModelConfig
 from ..core import aten
 from ..kernels import ops as kops
-from ..parallel.sharding import (current_rules, full_value, local_einsum,
+from ..parallel.sharding import (contiguous_stride, current_rules,
+                                 full_value, local_einsum,
                                  local_shape_and_offset, lsc, matmul,
                                  sum_grad)
 from .layers import apply_rope
@@ -184,10 +185,14 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block = min(block, max(Sk, 1))
     qpos = q_offset + torch.arange(Sq, device=q.device)
 
-    m = torch.full((B, KVH, G, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, KVH, G, Sq, D), dtype=torch.float32, device=q.device)
+    if isinstance(qg, DTensor):
+        m, l, acc = _initial_carry(qg)
+    else:
+        m = torch.full((B, KVH, G, Sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KVH, G, Sq, D), dtype=torch.float32,
+                          device=q.device)
     pad = (0, 0, 0, 0, 0, (-Sk) % block)
     kp, vp = F.pad(k, pad), F.pad(v, pad)
     nb = kp.shape[1] // block
@@ -217,6 +222,29 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = acc / l.clamp_min(1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)   # (B,KVH,G,Sq,D)->(B,Sq,H,D)
     return out.to(q.dtype)
+
+
+def _initial_carry(qg: DTensor):
+    """The online softmax's m, l (B, KVH, G, Sq) and acc (B, KVH, G, Sq, D)
+    for ``qg`` (B, Sq, KVH, G, D) on a mesh: DTensors sharded as ``qg``
+    shards the dims they share (its batch, KV heads and query positions),
+    each rank allocating its local shape only, as the reference's scan
+    carries them in the body's sharding."""
+    mesh = qg.device_mesh
+    B, Sq, KVH, G, D = qg.shape
+    out = []
+    for dims, value in (((0, 2, 3, 1), NEG_INF), ((0, 2, 3, 1), 0.0),
+                        ((0, 2, 3, 1, 4), 0.0)):
+        shape = tuple(qg.shape[d] for d in dims)
+        pls = [Shard(dims.index(p.dim)) if p.is_shard() and p.dim in dims
+               else Replicate() for p in qg.placements]
+        local, _ = local_shape_and_offset(shape, mesh, pls)
+        t = torch.full(local, value, dtype=torch.float32,
+                       device=qg.to_local().device)
+        out.append(DTensor.from_local(t, mesh, pls, run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=contiguous_stride(shape)))
+    return tuple(out)
 
 
 def _blocks(t: torch.Tensor, nb: int) -> torch.Tensor:

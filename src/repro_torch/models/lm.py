@@ -84,8 +84,11 @@ def constrain_params(param_tree, spec_tree):
 def layer_views(tree, n: int) -> list:
     """The n per-layer trees of a tree of stacked leaves, from one ``unbind``
     per leaf.  Indexing ``a[i]`` in the layer loop instead would make the
-    backward of each select write a zero tensor the size of the whole leaf."""
-    per_leaf = pr.tree_map(lambda a: a.unbind(0), tree)
+    backward of each select write a zero tensor the size of the whole leaf.
+    On a mesh each layer's gradient is reduced into its slice's placements
+    as the layer's backward computes it (``aten.grad_in_placements``)."""
+    per_leaf = pr.tree_map(
+        lambda a: [aten.grad_in_placements(t) for t in a.unbind(0)], tree)
     return [pr.tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
 
 

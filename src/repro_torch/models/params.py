@@ -121,6 +121,24 @@ def shardings(tree, rules):
     return tree_map(lambda p: rules.param_placements(p.axes, p.shape), tree)
 
 
+def stacked_shards(tree, rules) -> dict:
+    """{"a/b": (global shape, a rank's shard shape)} of the stacked leaves
+    (a leading 'layers' axis) of a spec tree under ``rules``."""
+    from ..parallel.sharding import mesh_axis_sizes, shard_shape
+    sizes = tuple(mesh_axis_sizes(rules.mesh).values())
+    out = {}
+
+    def walk(t, prefix):
+        if not is_leaf(t):
+            for k in t:
+                walk(t[k], f"{prefix}{k}/")
+        elif t.axes and t.axes[0] == "layers":
+            out[prefix[:-1]] = (tuple(t.shape), shard_shape(
+                t.shape, rules.param_placements(t.axes, t.shape), sizes))
+    walk(tree, "")
+    return out
+
+
 def distribute(tree, placements, mesh):
     """Each tensor of ``tree`` as a DTensor on ``mesh`` with the placements
     of the same leaf of ``placements`` (a ``shardings`` tree).  Every rank

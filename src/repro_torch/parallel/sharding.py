@@ -140,11 +140,36 @@ def local_shape_and_offset(shape, mesh, placements) -> tuple:
     return tuple(local), tuple(off)
 
 
+def shard_shape(shape, placements, sizes) -> tuple:
+    """A rank's shard of ``shape`` placed so on a mesh of ``sizes`` (one
+    per mesh dim), in even splits: the parameter and activation rules
+    shard a dim only where its mesh axes divide it."""
+    local = list(shape)
+    for size, pl in zip(sizes, placements):
+        if pl.is_shard():
+            local[pl.dim] //= size
+    return tuple(local)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor's global
+    stride where its local tensor is contiguous)."""
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
 @dataclass
 class MeshRules:
     mesh: object
     param_rules: dict = field(default_factory=lambda: dict(PARAM_RULES))
     act_rules: dict = field(default_factory=lambda: dict(ACT_RULES))
+    # mesh dims over which ``core.aten.grad_in_placements`` leaves a
+    # parameter's gradient unreduced (the trainer's int8 cross-pod
+    # compression syncs 'pod' itself)
+    keep_grad_dims: tuple = ()
 
     def _axis_size(self, name: str) -> int:
         return mesh_axis_sizes(self.mesh).get(name, 0)

@@ -18,14 +18,17 @@ With ``rules`` (a ``parallel.sharding.MeshRules`` on a ``DeviceMesh``) the
 step takes DTensors: parameters and optimizer state placed by the
 placement trees (``models.params.distribute``; ``opt_init`` places the
 state it makes), the batch by ``batch_shardings``.  The model's ``lsc``
-constraints then redistribute its activations, the gradients are pinned to
-the parameters' placements (``constrain_like_params``; the accumulator too,
-per microbatch), and with ``run.grad_compression == "int8_ef"`` on a mesh
-with a 'pod' axis they are mean-reduced over it by
-``grad_compress.compressed_pod_sync`` first.
+constraints then redistribute its activations, each gradient is reduced
+into its parameter's placements in the compute dtype before its f32 cast (a
+stacked leaf's in each layer's backward, ``core.aten.grad_in_placements``;
+the accumulator takes them too), and with ``run.grad_compression ==
+"int8_ef"`` on a mesh with a 'pod' axis they are mean-reduced over it by
+``grad_compress.compressed_pod_sync`` instead (the step's rules'
+``keep_grad_dims`` leave 'pod' to it).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -105,6 +108,7 @@ def make_train_step(model: LM, run: RunConfig,
         names = mesh_axis_names(rules.mesh)
         if run.grad_compression == "int8_ef" and "pod" in names:
             pod = names.index("pod")
+            rules = dataclasses.replace(rules, keep_grad_dims=(pod,))
 
     def constrain_like_params(tree, keep: Optional[int] = None):
         """Pin gradients to the parameters' placements (the FSDP layout):
@@ -130,12 +134,18 @@ def make_train_step(model: LM, run: RunConfig,
             lambda p: p.detach().to(compute_dtype).requires_grad_(True),
             params)
         leaves = pr.leaves(cparams)
+        # each gradient is reduced into its parameter's placements in its
+        # own dtype, then cast to f32 on the rank's shard (a stacked leaf's
+        # arrives so from the layer loop, ``aten.grad_in_placements``), as
+        # the reference's astype(float32) follows the bf16 dot
+        pls = (pr.leaves(pr.tree_map(lambda _, pl: pl, params, p_sh))
+               if p_sh is not None else [None] * len(leaves))
         if n_micro == 1:
             loss, metrics, grads = grads_of(leaves, cparams, batch)
-            grads = [g.float() for g in grads]
+            grads = [_redistribute(g, pl, pod).float()
+                     for g, pl in zip(grads, pls)]
         else:
-            # each accumulator takes its parameter's placements, so each
-            # microbatch's gradient is reduced into them as it is added
+            # each accumulator takes its parameter's placements
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in leaves]
             slices = {k: v.chunk(n_micro, dim=0) for k, v in batch.items()}
@@ -143,8 +153,8 @@ def make_train_step(model: LM, run: RunConfig,
             def micro(carry, i):
                 loss, metrics, gs = grads_of(
                     leaves, cparams, {k: v[i] for k, v in slices.items()})
-                for a, g in zip(grads, gs):
-                    a.add_(g.float())
+                for a, g, pl in zip(grads, gs, pls):
+                    a.add_(_redistribute(g, pl, pod).float())
                 return carry, (loss, metrics)
 
             _, ys = aten.repeat(micro, n_micro, None)

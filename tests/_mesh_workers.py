@@ -3,7 +3,8 @@
 Each test file that needs a process group spawns its ranks once through
 ``spawn``: ``torch.multiprocessing`` with the ``spawn`` start method, a
 ``file://`` rendezvous under the test's ``tmp_path`` (no port, safe under
-xdist), one torch thread per rank, f32 throughout (gloo reduces in f32).
+xdist), one torch thread per rank, f32 (gloo reduces in the tensor's
+dtype: ``bf16_train_cases`` reduces bf16 gradients, as the card does).
 The rank programs import torch and the port only, never JAX: inputs come
 in as numpy files written by the test, and each rank pickles what its
 program returns for the test to read.
@@ -69,10 +70,18 @@ def _flat_numpy(tree, prefix=""):
     return {prefix[:-1]: full_value(tree).detach().numpy()}
 
 
-def _run(cfg, run, impl, params, tokens, mesh, **model_kw):
+def _flat_state(opt):
+    """An optimizer state (a NamedTuple of its step and trees) as
+    {"field/leaf path": numpy}."""
+    return {f"{f}/{k}": v for f in opt._fields[1:]
+            for k, v in _flat_numpy(getattr(opt, f)).items()}
+
+
+def _run(cfg, run, impl, params, tokens, mesh, state=False, **model_kw):
     """Train steps of the port on ``mesh`` (None: no mesh), one a batch of
     ``tokens``: the losses, the final parameters as numpy and the
-    gradients' global norms."""
+    gradients' global norms, and with ``state`` the final optimizer state
+    (``_flat_state``)."""
     from repro_torch.launch.train import host_float, place_batch
     from repro_torch.models import params as pr
     from repro_torch.models.lm import build_model
@@ -93,6 +102,8 @@ def _run(cfg, run, impl, params, tokens, mesh, **model_kw):
         params, opt, m = step(params, opt, batch)
         losses.append(host_float(m["loss"]))
         norms.append(host_float(m["grad_norm"]))
+    if state:
+        return losses, _flat_numpy(params), norms, _flat_state(opt)
     return losses, _flat_numpy(params), norms
 
 
@@ -245,14 +256,97 @@ def loss_cases(rank, world, tmp, cases):
     {(name, mesh): result} from the first rank of each mesh."""
     from repro_torch.models.lm import build_model
 
-    meshes = {"1x2": submesh([[0, 1]]), "1x2b": submesh([[2, 3]]),
-              "2x2": submesh([[0, 1], [2, 3]])}
+    mine, meshes = _pair_meshes(rank)
     out = {}
     for name, cfg, act, tok_file in cases:
         params = build_model(cfg).init(torch.Generator().manual_seed(0))
         tokens = np.load(tok_file)
-        for m in ("1x2" if rank < 2 else "1x2b", "2x2"):
+        for m in (mine, "2x2"):
             res = loss_grad(cfg, params, tokens, meshes[m], act)
-            if rank in (0, 2) and (m != "2x2" or rank == 0):
+            if _firsts(rank, m):
                 out[(name, m)] = res
     return out
+
+
+def _pair_meshes(rank):
+    """(this rank's (1, 2) mesh name, {name: mesh}): a (1, 2) mesh on ranks
+    0-1 beside another on 2-3, and the (2, 2) mesh of all four."""
+    meshes = {"1x2": submesh([[0, 1]]), "1x2b": submesh([[2, 3]]),
+              "2x2": submesh([[0, 1], [2, 3]])}
+    return ("1x2" if rank < 2 else "1x2b"), meshes
+
+
+def _firsts(rank, name) -> bool:
+    """Whether ``rank`` reports for mesh ``name`` (its first rank)."""
+    return rank in (0, 2) and (name != "2x2" or rank == 0)
+
+
+ADAFACTOR_VC = {"replicated": None, "model": 1}
+
+
+def adafactor_cases(rank, world, tmp, arrays_file):
+    """One ``adafactor_update`` of a factored (L, R, C) leaf on the (1, 2)
+    and (2, 2) meshes: its gradient and parameter sharded as FSDP and
+    tensor parallelism shard a layer's weight (dim 1 over 'data', dim 2
+    over 'model'), the row factor (L, R) on dim 1 over 'data', the column
+    factor (L, C) arriving replicated or on 'model' (``ADAFACTOR_VC``).
+    ``arrays_file`` holds the whole p, g, vr, vc; every rank keeps its
+    shards.  Returns {(mesh, vc layout): (p, vr, vc) whole, numpy} from
+    the first rank of each mesh."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    from repro_torch.train.optimizer import (AdafactorState, OptConfig,
+                                             adafactor_update)
+
+    arrays = {k: torch.from_numpy(v) for k, v in np.load(arrays_file).items()}
+    mine, meshes = _pair_meshes(rank)
+    out = {}
+    for name in (mine, "2x2"):
+        mesh = meshes[name]
+
+        def put(t, *pl):
+            return distribute_tensor(t, mesh, list(pl), src_data_rank=None)
+        for vc_name, vc_dim in ADAFACTOR_VC.items():
+            vc_pl = Shard(vc_dim) if vc_dim is not None else Replicate()
+            state = AdafactorState(
+                step=torch.tensor(2, dtype=torch.int32),
+                vr={"w": put(arrays["vr"], Shard(1), Replicate())},
+                vc={"w": put(arrays["vc"], Replicate(), vc_pl)},
+                v={"w": torch.zeros(1)})
+            with use_rules(make_rules(mesh)):
+                p, st = adafactor_update(
+                    {"w": put(arrays["g"], Shard(1), Shard(2))}, state,
+                    {"w": put(arrays["p"], Shard(1), Shard(2))}, 1e-2,
+                    OptConfig(name="adafactor"))
+            res = tuple(full_value(t).numpy()
+                        for t in (p["w"], st.vr["w"], st.vc["w"]))
+            if _firsts(rank, name):
+                out[(name, vc_name)] = res
+    return out
+
+
+def bf16_train_cases(rank, world, tmp, cases):
+    """For each (arch, run, tokens file): train steps of the port's
+    ``make_train_step`` (``_run`` with the optimizer state) on the (1, 2)
+    and (2, 2) meshes from the model's own init (seed 0).  Returns
+    {(arch, mesh): result} from the first rank of each mesh."""
+    from repro_torch.models.lm import build_model
+
+    mine, meshes = _pair_meshes(rank)
+    out = {}
+    for arch, run, tok_file in cases:
+        params = build_model(run.model).init(torch.Generator().manual_seed(0))
+        tokens = list(np.load(tok_file))
+        for name in (mine, "2x2"):
+            res = _run(run.model, run, "chunked", params, tokens,
+                       meshes[name], state=True)
+            if _firsts(rank, name):
+                out[(arch, name)] = res
+    return out
+
+
+def grad_shard_cases(rank, world, tmp, arrays_file, cases):
+    """``adafactor_cases`` and ``bf16_train_cases`` in one spawn."""
+    return (adafactor_cases(rank, world, tmp, arrays_file),
+            bf16_train_cases(rank, world, tmp, cases))
